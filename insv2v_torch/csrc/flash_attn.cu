@@ -1,8 +1,8 @@
 // Flash attention forward for Hopper (sm_90a): bf16 q, k, v, f32 online
 // softmax, bf16 out.
 //
-// Replaces the TPU kernel _flash_kernel of the JAX package's
-// ops/attention.py (launched by flash_attention). It computes, per
+// Replaces the TPU kernels _flash_kernel and _flash_kernel_headfold of the
+// JAX package's ops/attention.py (launched by flash_attention). It computes, per
 // (batch*head, query block), softmax(q k^T * scale) v with a running max,
 // sum and f32 accumulator over key tiles; keys past Sk are masked to -inf.
 //
@@ -24,6 +24,10 @@
 //  * d = 512 does not fit registers: 32-row query and key tiles with wmma
 //    16x16x16 fragments, the logits and the f32 output tile in dynamic
 //    shared memory (above 48 KB, after cudaFuncSetAttribute).
+// Kernel A' (headfold, the JAX package's _flash_kernel_headfold) runs the
+// same register-layout block body from a grid of (batch, query block): each
+// block walks all the heads of its batch in turn, 8x fewer blocks than A at
+// the UNet's 8 heads, each doing 8x the work.
 // Known cost of this version: no TMA, no wgmma, no warp specialisation.
 #include <mma.h>
 
@@ -69,28 +73,25 @@ struct RegLayout {
   static constexpr size_t bytes = sizeof(bf16) * (kBQ * LD + 4 * TILE);
 };
 
+// One 128-query block of one (batch, head): q and o point at that head's
+// (sq, d) matrices, k and v at its (sk, d) ones. Every thread of the block
+// calls it; `smem` holds RegLayout<DP>::bytes.
 template <int DP>
-__global__ void __launch_bounds__(kWarpsR * 32)
-flash_fwd_reg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o, int sq, int sk, int d,
-                     float scale_log2) {
+__device__ __forceinline__ void flash_block_reg(const bf16* __restrict__ q,
+                                                const bf16* __restrict__ k,
+                                                const bf16* __restrict__ v, bf16* __restrict__ o,
+                                                int q0, int sq, int sk, int d, float scale_log2,
+                                                unsigned char* smem) {
   using L = RegLayout<DP>;
   constexpr int NT = kWarpsR * 32;
   constexpr int KD = DP / 16;   // k16 steps over the head dim
   constexpr int NS = kBK / 8;   // n8 key tiles of S
   constexpr int NO = DP / 8;    // n8 head-dim tiles of O
-  extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sK = sQ + kBQ * L::LD;  // two buffers
   bf16* sV = sK + 2 * L::TILE;  // two buffers
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const size_t bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  q += bh * sq * d;
-  k += bh * sk * d;
-  v += bh * sk * d;
-  o += bh * sq * d;
   const int ntiles = (sk + kBK - 1) / kBK;
 
   load_tile<DP, kBQ, true>(sQ, L::LD, q, q0, sq, d, tid, NT);
@@ -219,6 +220,35 @@ flash_fwd_reg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// Kernel A: one block per (batch*head, 128-query block).
+template <int DP>
+__global__ void __launch_bounds__(kWarpsR * 32)
+flash_fwd_reg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, int sq, int sk, int d,
+                     float scale_log2) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const size_t bh = blockIdx.y;
+  flash_block_reg<DP>(q + bh * sq * d, k + bh * sk * d, v + bh * sk * d, o + bh * sq * d,
+                      blockIdx.x * kBQ, sq, sk, d, scale_log2, smem);
+}
+
+// Kernel A' (the JAX package's _flash_kernel_headfold): one block per
+// (batch, 128-query block) walks the batch's heads in turn, with kernel
+// A's register layout and shared memory reused from head to head.
+template <int DP>
+__global__ void __launch_bounds__(kWarpsR * 32)
+flash_fwd_headfold_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ o, int heads, int sq,
+                          int sk, int d, float scale_log2) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  for (int h = 0; h < heads; ++h) {
+    const size_t bh = (size_t)blockIdx.y * heads + h;
+    flash_block_reg<DP>(q + bh * sq * d, k + bh * sk * d, v + bh * sk * d, o + bh * sq * d,
+                        blockIdx.x * kBQ, sq, sk, d, scale_log2, smem);
+    __syncthreads();  // every warp is done with this head's tiles before the refill
+  }
+}
+
 template <int DP>
 cudaError_t launch_reg(const bf16* q, const bf16* k, const bf16* v, bf16* o, int bh, int sq,
                        int sk, int d, float scale, cudaStream_t stream) {
@@ -229,6 +259,20 @@ cudaError_t launch_reg(const bf16* q, const bf16* k, const bf16* v, bf16* o, int
   if (e != cudaSuccess) return e;
   dim3 grid((sq + kBQ - 1) / kBQ, bh);
   kern<<<grid, kWarpsR * 32, L::bytes, stream>>>(q, k, v, o, sq, sk, d,
+                                                 scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_headfold(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b,
+                            int heads, int sq, int sk, int d, float scale, cudaStream_t stream) {
+  using L = RegLayout<DP>;
+  auto kern = flash_fwd_headfold_kernel<DP>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(L::bytes));
+  if (e != cudaSuccess) return e;
+  dim3 grid((sq + kBQ - 1) / kBQ, b);
+  kern<<<grid, kWarpsR * 32, L::bytes, stream>>>(q, k, v, o, heads, sq, sk, d,
                                                  scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -402,6 +446,27 @@ INSV2V_EXPORT int flash_attn_fwd(const void* q, const void* k, const void* v, vo
     case 48: return launch_reg<48>(Q, K, V, O, bh, sq, sk, d, scale, st);
     case 80: return launch_reg<80>(Q, K, V, O, bh, sq, sk, d, scale, st);
     case 512: return launch_wide<512, 32, 32>(Q, K, V, O, bh, sq, sk, d, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Kernel A' (headfold): q (b, heads, sq, d), k and v (b, heads, sk, d),
+// o like q; the same conditions as flash_attn_fwd, for the UNet's head dims
+// (ceil16(d) in {48, 80}). With one head the two grids are the same, so
+// the d = 512 VAE case goes to flash_attn_fwd.
+INSV2V_EXPORT int flash_attn_fwd_headfold(const void* q, const void* k, const void* v, void* o,
+                                          int b, int heads, int sq, int sk, int d, float scale,
+                                          void* stream) {
+  auto Q = static_cast<const bf16*>(q);
+  auto K = static_cast<const bf16*>(k);
+  auto V = static_cast<const bf16*>(v);
+  auto O = static_cast<bf16*>(o);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaGetLastError();  // clear an unrelated earlier error of this runtime
+  if (d % 8 != 0 || sq <= 0 || sk <= 0 || heads <= 0) return cudaErrorInvalidValue;
+  switch ((d + 15) / 16 * 16) {
+    case 48: return launch_headfold<48>(Q, K, V, O, b, heads, sq, sk, d, scale, st);
+    case 80: return launch_headfold<80>(Q, K, V, O, b, heads, sq, sk, d, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ["make_betas", "DiffusionSchedule", "SamplerTables", "make_sampler_tables",
-           "ddim_step", "ddpm_step", "sampler_step"]
+           "add_noise", "pred_x0_from_eps", "ddim_step", "ddpm_step", "sampler_step"]
 
 
 def make_betas(schedule: str, num_timesteps: int, beta_start: float = 1e-4,
@@ -39,15 +39,44 @@ def make_betas(schedule: str, num_timesteps: int, beta_start: float = 1e-4,
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
+    """Forward-process tables, float32 numpy arrays of length T, each
+    computed in float64 first, as the JAX package stores them."""
+
     num_train_timesteps: int
-    alphas_cumprod: np.ndarray  # (T,) float32, as the JAX package stores it
+    alphas_cumprod: np.ndarray
+    sqrt_alphas_cumprod: np.ndarray
+    sqrt_one_minus_alphas_cumprod: np.ndarray
 
     @classmethod
     def create(cls, beta_schedule: str = "scaled_linear", num_train_timesteps: int = 1000,
                beta_start: float = 0.00085, beta_end: float = 0.012,
                **_ignored) -> "DiffusionSchedule":
         betas = make_betas(beta_schedule, num_train_timesteps, beta_start, beta_end)
-        return cls(num_train_timesteps, np.cumprod(1.0 - betas).astype(np.float32))
+        ac = np.cumprod(1.0 - betas)
+        f32 = lambda a: np.asarray(a, dtype=np.float32)
+        return cls(num_train_timesteps, f32(ac), f32(np.sqrt(ac)), f32(np.sqrt(1.0 - ac)))
+
+
+def _at(table: np.ndarray, t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """table[t] for a (B,) timestep tensor, shaped to broadcast over x."""
+    vals = torch.from_numpy(table).to(x.device)[t.to(x.device).long()]
+    return vals.reshape(vals.shape + (1,) * (x.ndim - vals.ndim))
+
+
+def add_noise(schedule: DiffusionSchedule, x0: torch.Tensor, eps: torch.Tensor,
+              t: torch.Tensor) -> torch.Tensor:
+    """q(x_t | x_0) = sqrt(a_t) x0 + sqrt(1 - a_t) eps, in float32."""
+    a = _at(schedule.sqrt_alphas_cumprod, t, x0)
+    s = _at(schedule.sqrt_one_minus_alphas_cumprod, t, x0)
+    return a * x0.float() + s * eps.float()
+
+
+def pred_x0_from_eps(schedule: DiffusionSchedule, x_t: torch.Tensor, eps: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+    """x0_hat = (x_t - sqrt(1 - a_t) eps) / sqrt(a_t), in float32."""
+    a = _at(schedule.sqrt_alphas_cumprod, t, x_t)
+    s = _at(schedule.sqrt_one_minus_alphas_cumprod, t, x_t)
+    return (x_t.float() - s * eps.float()) / a
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "build_all", "load", "check"]
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("flash_attn", "geglu_ff", "temporal_attn")
+SOURCES = ("flash_attn", "geglu_ff", "temporal_attn", "layer_norm")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 _libs: Dict[str, ctypes.CDLL] = {}

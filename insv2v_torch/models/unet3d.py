@@ -26,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from insv2v_torch.ops.attention import dot_attention_bshd, temporal_attention
 from insv2v_torch.ops.embeddings import (
@@ -67,6 +68,9 @@ class UNetConfig:
     motion_max_seq_length: int = 32
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
+    # recompute each Down/Mid/Up block's activations in the backward
+    # instead of keeping them (the JAX package's nn.remat on the blocks)
+    remat: bool = False
 
     @property
     def time_embed_dim(self) -> int:
@@ -448,6 +452,14 @@ class UNet3DConditionModel(nn.Module):
         self.conv_norm_out = _norm(cfg.norm_num_groups, ch[0], cfg.norm_eps)
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
 
+    def _block(self, blk, *args):
+        """One block, under activation checkpointing when ``cfg.remat`` and
+        a gradient is being recorded: the backward reruns its forward,
+        kernel launches included, rather than keep its activations."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(blk, *args, use_reentrant=False)
+        return blk(*args)
+
     def forward(self, sample, timesteps, encoder_hidden_states, video_start_index: int = 0):
         cfg = self.cfg
         dt = self.conv_in.weight.dtype
@@ -460,13 +472,13 @@ class UNet3DConditionModel(nn.Module):
         x = conv2d_frames(self.conv_in, sample.to(dt))
         skips = [x]
         for blk in self.down_blocks:
-            x, states = blk(x, temb, context, video_start_index)
+            x, states = self._block(blk, x, temb, context, video_start_index)
             skips.extend(states)
-        x = self.mid_block(x, temb, context, video_start_index)
+        x = self._block(self.mid_block, x, temb, context, video_start_index)
         n_res = cfg.layers_per_block + 1
         for blk in self.up_blocks:
             block_skips = skips[-n_res:]
             del skips[-n_res:]
-            x = blk(x, block_skips, temb, context, video_start_index)
+            x = self._block(blk, x, block_skips, temb, context, video_start_index)
         x = F.silu(self.conv_norm_out(x))
         return conv2d_frames(self.conv_out, x)

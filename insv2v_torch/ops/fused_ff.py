@@ -16,12 +16,14 @@ w2 (C, inner).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from insv2v_torch.kernels import build
 from insv2v_torch.ops.norms import layer_norm
+from insv2v_torch.ops.recompute import KernelGrad
 
 __all__ = ["geglu_ff_reference", "fused_geglu_ff", "geglu_ff"]
 
@@ -31,17 +33,13 @@ FF_WIDTHS = (320, 640, 1280)  # the SD UNet widths kernel B is compiled for
 def geglu_ff_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-5):
     """LN -> Linear(2*inner) -> split -> h * gelu(gate) -> Linear(C) -> +x."""
     dt = x.dtype
-    xn = layer_norm(x, ln_scale, ln_bias, eps)
+    xn = layer_norm(x, ln_scale, ln_bias, eps, fused=False)  # plain whatever the switch
     h, gate = F.linear(xn, w1.to(dt), b1.to(dt)).chunk(2, dim=-1)
     h = h * F.gelu(gate, approximate="none")
     return x + F.linear(h, w2.to(dt), b2.to(dt))
 
 
-def fused_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-5):
-    """Kernel B on CUDA tensors (bf16, contiguous, C in {320, 640, 1280},
-    inner % 128 == 0); the plain twin on CPU tensors."""
-    if not x.is_cuda:
-        return geglu_ff_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps)
+def _launch_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
     c = x.shape[-1]
     inner = w2.shape[1]
     shapes = {"ln_scale": (ln_scale, (c,)), "ln_bias": (ln_bias, (c,)),
@@ -69,6 +67,17 @@ def fused_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-5):
     build.check("geglu_ff", status)
     fused_geglu_ff.launches += 1
     return out
+
+
+def fused_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-5):
+    """Kernel B on CUDA tensors (bf16, contiguous, C in {320, 640, 1280},
+    inner % 128 == 0); the plain twin on CPU tensors. Differentiable in all
+    seven tensors: the backward recomputes the plain twin."""
+    if not x.is_cuda:
+        return geglu_ff_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps)
+    return KernelGrad.apply(functools.partial(_launch_ff, eps=eps),
+                            functools.partial(geglu_ff_reference, eps=eps),
+                            x, ln_scale, ln_bias, w1, b1, w2, b2)
 
 
 fused_geglu_ff.launches = 0

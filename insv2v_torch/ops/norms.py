@@ -14,12 +14,19 @@ affine output is computed in float32 and rounded once to the input dtype.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["group_norm", "layer_norm"]
+from insv2v_torch.ops.fused_norm import fused_layer_norm
+
+__all__ = ["group_norm", "layer_norm", "FUSED_LAYER_NORM"]
+
+# layer_norm's default: kernel D when on; the JAX package's switch and
+# default (INSV2V_PALLAS_NORM, off)
+FUSED_LAYER_NORM = os.environ.get("INSV2V_PALLAS_NORM", "0") == "1"
 
 
 def group_norm(
@@ -43,11 +50,20 @@ def group_norm(
     # (a, b) in f32: one pass over x that computes in f32 and writes x.dtype
     a = torch.rsqrt(var + eps) * scale.float().reshape(num_groups, -1)
     b = bias.float().reshape(num_groups, -1) - mean * a
+    if torch.is_grad_enabled() and (x.requires_grad or a.requires_grad):
+        # autograd does not record out= ops: the same f32 affine, rounded after
+        return torch.addcmul(b, xg, a).to(x.dtype).reshape(x.shape)
     return torch.addcmul(b, xg, a, out=torch.empty_like(xg)).reshape(x.shape)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis: PyTorch's fused op, which keeps the
-    statistics and the affine in f32 for bf16 inputs."""
+               eps: float = 1e-5, fused: Optional[bool] = None) -> torch.Tensor:
+    """LayerNorm over the last axis. ``fused`` (default ``FUSED_LAYER_NORM``)
+    goes through ``fused_layer_norm`` (kernel D on CUDA tensors, f32 scale
+    and bias); otherwise PyTorch's fused op, which keeps the statistics and
+    the affine in f32 for bf16 inputs."""
+    if fused is None:
+        fused = FUSED_LAYER_NORM
+    if fused:
+        return fused_layer_norm(x, scale, bias, eps)
     return F.layer_norm(x, x.shape[-1:], scale.to(x.dtype), bias.to(x.dtype), eps)

@@ -21,6 +21,18 @@ from insv2v_torch.diffusion import schedules as tsched
 from insv2v_torch.models.unet3d import UNet3DConditionModel, UNetConfig
 from insv2v_torch.utils.convert import torch_state_dict_from_flax
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per op while this module runs: its ops are
+    small, and the suite's parallel workers share the host's cores, where
+    several threads per op mostly wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 JS, TS = jsched.DiffusionSchedule.create(), tsched.DiffusionSchedule.create()
 

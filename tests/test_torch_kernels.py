@@ -17,6 +17,17 @@ from insv2v_torch.ops import attention as tattn
 from insv2v_torch.ops import fused_ff as tff
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per op while this module runs: its ops are
+    small, and the suite's parallel workers share the host's cores, where
+    several threads per op mostly wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rnd(*shape, seed=0, scale=1.0):
     return (np.random.RandomState(seed).randn(*shape) * scale).astype(np.float32)
 

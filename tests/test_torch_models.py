@@ -29,6 +29,18 @@ from insv2v_torch.models.unet3d import UNet3DConditionModel, UNetConfig
 from insv2v_torch.models.vae import AutoencoderKL, VaeConfig
 from insv2v_torch.utils.convert import flatten, torch_state_dict_from_flax
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per op while this module runs: its ops are
+    small, and the suite's parallel workers share the host's cores, where
+    several threads per op mostly wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 VAE_KW = dict(ch=8, ch_mult=(1, 2), num_res_blocks=1, z_channels=4, embed_dim=4,
               resolution=16)

@@ -16,6 +16,18 @@ from insv2v_torch.ops import embeddings as temb
 from insv2v_torch.ops import norms as tnorms
 from insv2v_torch.ops.resize import nearest_upsample_2x as t_up
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per op while this module runs: its ops are
+    small, and the suite's parallel workers share the host's cores, where
+    several threads per op mostly wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RS = np.random.RandomState(0)
 
 

@@ -31,6 +31,18 @@ from insv2v_torch.models.unet3d import UNet3DConditionModel, UNetConfig
 from insv2v_torch.models.vae import AutoencoderKL, VaeConfig
 from insv2v_torch.text import tokenizer as ttok
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread per op while this module runs: its ops are
+    small, and the suite's parallel workers share the host's cores, where
+    several threads per op mostly wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VAE_KW = dict(ch=8, ch_mult=(1, 2), num_res_blocks=1, z_channels=4, embed_dim=4,
               resolution=32)
