@@ -42,10 +42,13 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # kernel A: UNet attn1 at levels 0 and 1, then the VAE mid-block attention
-# (encode chunks of 16 frames, decode chunks of 8) at 256x384
-FLASH_SHAPES = [(48, 8, 1536, 40), (48, 8, 384, 80), (16, 1, 1536, 512), (8, 1, 1536, 512)]
-# kernel A': the UNet attn1 shapes of kernel A (the VAE's one head takes A)
-HEADFOLD_SHAPES = FLASH_SHAPES[:2]
+# (encode chunks of 16 frames, decode chunks of 8) at 256x384, and the
+# training VAE encode (16 frames at 256x256)
+FLASH_SHAPES = [(48, 8, 1536, 40), (48, 8, 384, 80), (16, 1, 1536, 512), (8, 1, 1536, 512),
+                (16, 1, 1024, 512)]
+# kernel A': the edit's UNet attn1 shapes of kernel A (the VAE's one head
+# takes A), then training's (16 frames at 256x256, where A' is on)
+HEADFOLD_SHAPES = FLASH_SHAPES[:2] + [(16, 8, 1024, 40), (16, 8, 256, 80)]
 # kernel B: (rows, C) of every spatial and motion FF at 48 frames of 32x48
 FF_SHAPES = [(73728, 320), (18432, 640), (4608, 1280), (1152, 1280)]
 # kernel C: (B, P, F, heads, e) of the motion modules at levels 0..3
@@ -89,25 +92,29 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
-    """Device time per call: the CUDA activity (kernels, copies) in a
-    torch.profiler trace of ``iters`` back-to-back calls, without the host
-    gaps between launches that an event timing of a sub-0.1 ms kernel
-    measures."""
+def device_ms(fn, iters: int):
+    """Device time per call and its clock: the CUDA activity (kernels,
+    copies) in a torch.profiler trace of ``iters`` back-to-back calls,
+    without the host gaps between launches that an event timing of a
+    sub-0.1 ms kernel measures ("profiler"). Where three traces record no
+    device time, the CUDA-event time per call, host gaps included
+    ("events")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    if total <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return total / 1e3 / iters
+    for _ in range(3):  # the profiler now and then drops a short window's records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / iters, "profiler"
+    log("device_ms: the profiler recorded no device time three times; CUDA events instead")
+    return time_ms(fn, iters), "events"
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -143,33 +150,35 @@ def _entry(name, source, replaces, rows):
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-            "shapes": rows}
+            "ms_source": head["ms_source"], "shapes": rows}
 
 
 def _report(name, shape, err, kernel, plain, library, iters, bms, by):
     """Check one shape's error and time the kernel, its plain twin and the
-    library call (None: there is none) on it: device time per call, and
-    the kernel's CUDA-event time per back-to-back call beside it."""
+    library call (None: there is none) on it: device time per call, with
+    the clock each was read on (``ms_source``), and the kernel's CUDA-event
+    time per back-to-back call beside it."""
     tol = TOL[name]
     if not (err <= tol):
         raise AssertionError(f"{name} {shape}: error {err} above {tol}")
-    ms, event_ms = device_ms(kernel, iters), time_ms(kernel, iters)
-    plain_ms = device_ms(plain, max(1, iters // 4))
-    lib_ms = None if library is None else device_ms(library, iters)
+    (ms, ms_clock), event_ms = device_ms(kernel, iters), time_ms(kernel, iters)
+    plain_ms, plain_clock = device_ms(plain, max(1, iters // 4))
+    lib_ms, lib_clock = (None, None) if library is None else device_ms(library, iters)
     lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
     log(f"parity {name} {shape}: max_abs_err {err:.3e} (tol {tol:g}) "
         f"kernel {ms:.4f} ms (events {event_ms:.4f}), plain {plain_ms:.4f} ms, "
         f"library {lib} ms, bound {bms:.4f} ms ({by})")
     return {"shape": list(shape), "max_abs_err": err, "ms": ms, "event_ms": event_ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+            "ms_source": {"ms": ms_clock, "plain_ms": plain_clock, "library_ms": lib_clock}}
 
 
 def phase_parity(gen):
     import torch.nn.functional as F
 
     from insv2v_torch.ops.attention import (flash_attention, flash_attention_headfold,
-                                            flash_attention_reference, temporal_attention,
-                                            temporal_attention_reference)
+                                            flash_attention_reference, flash_grid,
+                                            temporal_attention, temporal_attention_reference)
     from insv2v_torch.ops.fused_ff import fused_geglu_ff, geglu_ff_reference
     from insv2v_torch.ops.fused_norm import fused_layer_norm, fused_layer_norm_reference
 
@@ -191,6 +200,8 @@ def phase_parity(gen):
         rows.append(_report("flash_attention", shape, err, lambda: flash_attention(q, k, v),
                             lambda: flash_attention_reference(q, k, v),
                             lambda: F.scaled_dot_product_attention(q, k, v), 10, bms, by))
+        log(f"grid flash_attention {shape}: " + ", ".join(
+            f"{key} {val}" for key, val in flash_grid(*shape, headfold=False).items()))
         del q, k, v, out, ref
     entries.append(_entry("flash_attention", "insv2v_torch/csrc/flash_attn.cu",
                           "insv2v_tpu/ops/attention.py:95", rows))
@@ -207,6 +218,8 @@ def phase_parity(gen):
                             lambda: flash_attention_headfold(q, k, v),
                             lambda: flash_attention_reference(q, k, v),
                             lambda: F.scaled_dot_product_attention(q, k, v), 10, bms, by))
+        log(f"grid flash_attention_headfold {shape}: " + ", ".join(
+            f"{key} {val}" for key, val in flash_grid(*shape, headfold=True).items()))
         del q, k, v, out, ref
     entries.append(_entry("flash_attention_headfold", "insv2v_torch/csrc/flash_attn.cu",
                           "insv2v_tpu/ops/attention.py:131", rows))

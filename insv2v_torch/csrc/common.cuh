@@ -20,21 +20,11 @@ INSV2V_EXPORT const char* error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
-
-// Rounds a byte count up to 128 so each shared-memory region that follows
-// starts aligned for wmma (which needs 32 bytes) and for vector stores.
-__host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
 // --- tensor-core and async-copy primitives (sm_80+ PTX, run on sm_90a) ---
 

@@ -45,172 +45,12 @@
 // still; a bare fence.proxy.async in the tile loop doubles the time (it
 // waits for the in-flight copies).
 #include <cooperative_groups.h>
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-// --- wgmma, mbarrier, TMA and cluster-barrier primitives (sm_90a PTX) ---
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-}
-// orders this thread's shared-memory stores before later wgmma reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// keeps the compiler from moving accumulator reads across wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (long long i = 0;; ++i) {
-    uint32_t ok;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (ok) return;
-    if (i > (1ll << 24)) __trap();  // an arrival that never comes: fail, do not hang
-  }
-}
-// box (c0 = column, c1 = row) of a 2D tensor map into shared memory
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(map), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-// barrier 1 over the two consumer warpgroups only
-__device__ __forceinline__ void consumer_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// Descriptor of a K-major swizzled operand: layout 1 = 128-byte swizzle,
-// 3 = 32-byte swizzle; sbo = bytes between 8-row groups.
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint64_t layout, uint32_t sbo) {
-  uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
-  d |= (uint64_t)1 << 16;
-  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
-  d |= layout << 62;
-  return d;
-}
-
-// d (64 x 32 f32, this thread's 16) (+)= A (64 x 16) B^T (16 x 32); A and B
-// K-major bf16 in shared memory, given by descriptors.
-__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da, uint64_t db,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
-      " %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64 f32, this thread's 32) (+)= A (64 x 16) B^T (16 x 64); A and B
-// K-major bf16 in shared memory, given by descriptors.
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-      " %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 160 f32, this thread's 80) (+)= A (64 x 16) B^T (16 x 160); A and B
-// K-major bf16 in shared memory, given by descriptors.
-__device__ __forceinline__ void wgmma_m64n160k16(float (&d)[80], uint64_t da, uint64_t db,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79},"
-      " %80, %81, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <int N> struct Wgmma;
-template <> struct Wgmma<32> {
-  static __device__ __forceinline__ void run(float (&d)[16], uint64_t a, uint64_t b, int acc) {
-    wgmma_m64n32k16(d, a, b, acc);
-  }
-};
-template <> struct Wgmma<64> {
-  static __device__ __forceinline__ void run(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-    wgmma_m64n64k16(d, a, b, acc);
-  }
-};
-template <> struct Wgmma<160> {
-  static __device__ __forceinline__ void run(float (&d)[80], uint64_t a, uint64_t b, int acc) {
-    wgmma_m64n160k16(d, a, b, acc);
-  }
-};
 
 constexpr int kConsumerWarps = 8, kThreads = 256 + 32;
 constexpr int BM = 64, KS2 = 16;
@@ -274,7 +114,7 @@ geglu_ff_kernel(const __grid_constant__ CUtensorMap map_w1,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
 
@@ -421,7 +261,7 @@ geglu_ff_kernel(const __grid_constant__ CUtensorMap map_w1,
           // of the tile (its h columns, then its g columns); k16 step kk
           const uint64_t da = gmma_desc(sXb + (s * T::KB + kb) * 8192 + kk * 32, 1, 1024);
           const uint64_t db = gmma_desc(w + (kb * 2 + wg) * T::GC * 128 + kk * 32, 1, 1024);
-          Wgmma<T::N1>::run(acc1, da, db, (s > 0 || kb > 0 || kk > 0) ? 1 : 0);
+          WgmmaSS<T::N1>::run(acc1, da, db, (s > 0 || kb > 0 || kk > 0) ? 1 : 0);
         }
       wgmma_commit();
       if (R == 1 || s == T::KT1 - 1) {
@@ -471,7 +311,7 @@ geglu_ff_kernel(const __grid_constant__ CUtensorMap map_w1,
       wgmma_fence();
       const uint64_t da = gmma_desc(gbuf + (kk / 4) * 8192 + (kk % 4) * 32, 1, 1024);
       const uint64_t db = gmma_desc(w + wg * T::N2 * 32, 3, 256);
-      Wgmma<T::N2>::run(acc2, da, db, 1);
+      WgmmaSS<T::N2>::run(acc2, da, db, 1);
       wgmma_commit();
       if (R == 1) {
         wgmma_wait_all();
@@ -501,38 +341,6 @@ geglu_ff_kernel(const __grid_constant__ CUtensorMap map_w1,
           xv.x + bo.x + acc2[4 * n + 2 * half], xv.y + bo.y + acc2[4 * n + 2 * half + 1]);
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                  cudaEnableDefault, &q);
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a (rows, cols) row-major bf16 matrix, boxes of (box_rows, box_cols)
-bool make_map(CUtensorMap* m, const void* base, uint64_t rows, uint64_t cols, uint32_t box_rows,
-              uint32_t box_cols, CUtensorMapSwizzle swz) {
-  EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  cuuint64_t dims[2] = {cols, rows};
-  cuuint64_t strides[1] = {cols * 2};
-  cuuint32_t box[2] = {box_cols, box_rows};
-  cuuint32_t estr[2] = {1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int C, int R>

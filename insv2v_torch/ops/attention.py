@@ -112,6 +112,18 @@ def _launch_flash(q, k, v, scale: float, headfold: bool):
     return o
 
 
+def flash_grid(b: int, h: int, sq: int, d: int, headfold: bool) -> dict:
+    """The grid that kernel A, or A' when ``headfold``, launches at
+    (B, H, Sq, D) on the current CUDA device, as its launcher chooses it:
+    consumer ``warpgroups`` a block, ``blocks`` launched and the work
+    ``items`` (query blocks of every head) they share out."""
+    out = (ctypes.c_int * 3)()
+    status = build.load("flash_attn").flash_attn_grid(
+        *(ctypes.c_int(x) for x in (b, h, sq, d, int(headfold))), out)
+    build.check("flash_attn", status)
+    return {"warpgroups": out[0], "blocks": out[1], "items": out[2]}
+
+
 def flash_attention(q, k, v, scale: Optional[float] = None, headfold: Optional[bool] = None):
     """Attention through kernel A, or kernel A' when ``headfold`` (default
     ``FLASH_HEADFOLD``). q (B, H, Sq, D), k/v (B, H, Sk, D). Differentiable:

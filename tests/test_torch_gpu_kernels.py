@@ -30,9 +30,13 @@ def _randn(gen, *shape, scale=1.0):
 
 
 @pytest.mark.parametrize("b,h,sq,sk,d", [(2, 8, 300, 300, 40), (2, 8, 384, 260, 80),
-                                         (1, 2, 100, 700, 80), (1, 1, 260, 300, 512)])
+                                         (1, 2, 100, 700, 80), (1, 1, 260, 300, 512),
+                                         (2, 1, 1024, 1000, 512), (1, 1, 40, 300, 512)])
 def test_flash_kernel_matches_twin(cuda, b, h, sq, sk, d):
-    """Ragged lengths (not multiples of the 64 or 32 key tiles), sq != sk."""
+    """Ragged lengths (not multiples of the 64-key tiles at d = 40/80 or the
+    32-key tiles at d = 512, nor of the 64, 128 or 192 query rows of a work
+    item), sq != sk; at d = 512 the training depth and fewer queries than
+    one query block."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = _randn(g, b, h, sq, d), _randn(g, b, h, sk, d), _randn(g, b, h, sk, d)
     before = tattn.flash_attention.launches
@@ -44,9 +48,13 @@ def test_flash_kernel_matches_twin(cuda, b, h, sq, sk, d):
 
 
 @pytest.mark.parametrize("b,h,sq,sk,d", [(2, 8, 300, 300, 40), (2, 8, 384, 260, 80),
-                                         (1, 3, 100, 700, 80)])
+                                         (1, 3, 100, 700, 80), (3, 8, 256, 256, 80),
+                                         (2, 8, 1024, 1024, 40), (34, 2, 384, 300, 40)])
 def test_flash_headfold_kernel_matches_twin(cuda, b, h, sq, sk, d):
-    """Kernel A': ragged lengths, sq != sk, an odd head count."""
+    """Kernel A': ragged lengths, sq != sk, an odd head count, and training's
+    shapes at a small batch: fewer blocks than SMs, several heads per
+    consumer warpgroup. The last case has enough (batch, query block)
+    blocks for the form whose warpgroups share one K/V ring."""
     g = torch.Generator(device=cuda).manual_seed(5)
     q, k, v = _randn(g, b, h, sq, d), _randn(g, b, h, sk, d), _randn(g, b, h, sk, d)
     before = tattn.flash_attention_headfold.launches, tattn.flash_attention.launches
@@ -59,6 +67,14 @@ def test_flash_headfold_kernel_matches_twin(cuda, b, h, sq, sk, d):
     # the same block body as kernel A: the same numbers
     torch.testing.assert_close(out, tattn.flash_attention(q, k, v, headfold=False),
                                rtol=0, atol=0)
+
+
+def test_flash_headfold_cases_cover_both_forms(cuda):
+    """The cases above reach both forms of kernel A' as its launcher
+    chooses them: two warpgroups with a ring each over 64-query blocks
+    where blocks are few, three on a shared ring otherwise."""
+    assert tattn.flash_grid(3, 8, 256, 80, headfold=True)["warpgroups"] == 2
+    assert tattn.flash_grid(34, 2, 384, 40, headfold=True)["warpgroups"] == 3
 
 
 @pytest.mark.parametrize("rows,c", [(1000, 320), (77, 768), (40, 1280), (7, 640), (9, 72)])
@@ -79,6 +95,9 @@ def test_layer_norm_kernel_matches_twin(cuda, rows, c):
 
 def _grad_case(name, g):
     """(wrapper, twin, inputs) of one kernel at a small shape."""
+    if name == "flash_wide":
+        return tattn.flash_attention, tattn.flash_attention_reference, \
+            [_randn(g, 1, 1, 300, 512) for _ in range(3)]
     if name in ("flash", "flash_headfold"):
         ts = [_randn(g, 2, 4, 300, 40) for _ in range(3)]
         hf = name == "flash_headfold"
@@ -100,7 +119,8 @@ def _grad_case(name, g):
          _randn(g, c, scale=0.1)]
 
 
-@pytest.mark.parametrize("name", ["flash", "flash_headfold", "temporal", "ff", "layer_norm"])
+@pytest.mark.parametrize("name", ["flash", "flash_headfold", "flash_wide", "temporal", "ff",
+                                  "layer_norm"])
 def test_kernel_backward_matches_twin_autograd(cuda, name):
     """The wrappers' outputs carry gradients to every input: the kernel's
     backward (the twin recomputed) against autograd through the twin on
