@@ -50,7 +50,9 @@ FLASH_SHAPES = [(48, 8, 1536, 40), (48, 8, 384, 80), (16, 1, 1536, 512), (8, 1, 
 # takes A), then training's (16 frames at 256x256, where A' is on)
 HEADFOLD_SHAPES = FLASH_SHAPES[:2] + [(16, 8, 1024, 40), (16, 8, 256, 80)]
 # kernel B: (rows, C) of every spatial and motion FF at 48 frames of 32x48
-FF_SHAPES = [(73728, 320), (18432, 640), (4608, 1280), (1152, 1280)]
+# (the edit), then at 16 frames of 32x32 (training)
+FF_SHAPES = [(73728, 320), (18432, 640), (4608, 1280), (1152, 1280),
+             (16384, 320), (4096, 640), (1024, 1280), (256, 1280)]
 # kernel C: (B, P, F, heads, e) of the motion modules at levels 0..3
 TEMPORAL_SHAPES = [(3, 1536, 16, 8, 40), (3, 384, 16, 8, 80), (3, 96, 16, 8, 160),
                    (3, 24, 16, 8, 160)]
@@ -179,7 +181,7 @@ def phase_parity(gen):
     from insv2v_torch.ops.attention import (flash_attention, flash_attention_headfold,
                                             flash_attention_reference, flash_grid,
                                             temporal_attention, temporal_attention_reference)
-    from insv2v_torch.ops.fused_ff import fused_geglu_ff, geglu_ff_reference
+    from insv2v_torch.ops.fused_ff import ff_grid, fused_geglu_ff, geglu_ff_reference
     from insv2v_torch.ops.fused_norm import fused_layer_norm, fused_layer_norm_reference
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -239,6 +241,17 @@ def phase_parity(gen):
                         2.0 * (2 * n * c + 3 * c * inner + 2 * inner + 3 * c))
         rows.append(_report("fused_geglu_ff", (n, c), err, lambda: fused_geglu_ff(*args),
                             lambda: geglu_ff_reference(*args), None, 10, bms, by))
+        # what cuBLAS gives the two bare products at this shape: a yardstick
+        # of the card, not library_ms (no one call computes B's function)
+        xn, hid = rnd(n, c), rnd(n, inner)
+        gemm1_ms, _ = device_ms(lambda: F.linear(xn, w1), 10)
+        gemm2_ms, _ = device_ms(lambda: F.linear(hid, w2), 10)
+        rows[-1]["cublas_ms"] = {"gemm1": gemm1_ms, "gemm2": gemm2_ms}
+        log(f"cublas fused_geglu_ff {(n, c)}: F.linear GEMM1 {gemm1_ms:.4f} ms + GEMM2 "
+            f"{gemm2_ms:.4f} ms = {gemm1_ms + gemm2_ms:.4f} ms")
+        log(f"grid fused_geglu_ff {(n, c)}: " + ", ".join(
+            f"{key} {val}" for key, val in ff_grid(n, c, inner).items()))
+        del x, w1, w2, args, out, ref, xn, hid
     entries.append(_entry("fused_geglu_ff", "insv2v_torch/csrc/geglu_ff.cu",
                           "insv2v_tpu/ops/fused_ff.py:155", rows))
 
@@ -627,7 +640,7 @@ def phase_train(models, args, gen):
 
 
 PROFILE_CLASSES = (  # kernel-name fragments, matched in this order
-    ("kernel A (flash)", ("flash_fwd",)), ("kernel B (ff)", ("geglu_ff",)),
+    ("kernel A (flash)", ("flash_fwd",)), ("kernel B (ff)", ("ff_gate", "ff_out")),
     ("kernel C (temporal)", ("temporal_attn",)),
     ("convolution", ("conv", "fprop", "implicit", "winograd")),
     ("matmul", ("gemm", "nvjet", "cutlass", "xmma")))

@@ -539,13 +539,6 @@ struct Grid {
 
 constexpr int a_warpgroups(int dp) { return dp > 64 ? 2 : 3; }
 
-int sm_count() {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
-
 Grid flash_grid(int b, int heads, int sq, int dp, bool headfold, int sms) {
   auto qblocks = [sq](int rows) { return (sq + rows - 1) / rows; };
   if (dp > 128) {

@@ -5,7 +5,9 @@ Counterpart of ``ops/fused_ff.py`` in the JAX package:
 
   * ``geglu_ff_reference``: the plain twin in stock PyTorch, exact erf
     gelu, the same composition as the JAX package's reference;
-  * ``fused_geglu_ff``: kernel B (``csrc/geglu_ff.cu``) on CUDA tensors;
+  * ``fused_geglu_ff``: kernel B (``csrc/geglu_ff.cu``: LN + GEMM1 +
+    GEGLU, then GEMM2 + residual, through a gated scratch) on CUDA tensors;
+  * ``ff_grid``: the grids kernel B launches at a shape;
   * ``geglu_ff``: what the models call; the kernel wrapper on CUDA
     tensors, the plain twin on CPU tensors.
 
@@ -25,7 +27,7 @@ from insv2v_torch.kernels import build
 from insv2v_torch.ops.norms import layer_norm
 from insv2v_torch.ops.recompute import KernelGrad
 
-__all__ = ["geglu_ff_reference", "fused_geglu_ff", "geglu_ff"]
+__all__ = ["geglu_ff_reference", "fused_geglu_ff", "geglu_ff", "ff_grid"]
 
 FF_WIDTHS = (320, 640, 1280)  # the SD UNet widths kernel B is compiled for
 
@@ -60,13 +62,29 @@ def _launch_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float):
             raise ValueError("fused_geglu_ff: tensor data must be 16-byte aligned")
     rows = x.numel() // c
     out = torch.empty_like(x)
+    # scratch for the gated (rows, inner) intermediate between the two kernels
+    gated = torch.empty(rows, inner, device=x.device, dtype=torch.bfloat16)
     status = build.load("geglu_ff").geglu_ff_fwd(
-        *(ctypes.c_void_p(t.data_ptr()) for t in ts), ctypes.c_void_p(out.data_ptr()),
+        *(ctypes.c_void_p(t.data_ptr()) for t in (*ts, out, gated)),
         ctypes.c_int(rows), ctypes.c_int(c), ctypes.c_int(inner), ctypes.c_float(eps),
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     build.check("geglu_ff", status)
     fused_geglu_ff.launches += 1
     return out
+
+
+def ff_grid(rows: int, c: int, inner: int) -> dict:
+    """The grids kernel B launches at (rows, C, inner) on the current CUDA
+    device, as its launcher chooses them: B-i's ``gate_cols`` (gated
+    columns of a column tile: 64 where LN(x) stays in shared memory, 128
+    where x is streamed), ``gate_tiles`` (column tiles per block) and
+    ``gate_blocks``; B-ii's ``out_blocks`` (of 128 rows x 160 columns).
+    Every block takes 128 rows."""
+    out = (ctypes.c_int * 4)()
+    status = build.load("geglu_ff").geglu_ff_grid(
+        ctypes.c_int(rows), ctypes.c_int(c), ctypes.c_int(inner), out)
+    build.check("geglu_ff", status)
+    return dict(zip(("gate_cols", "gate_tiles", "gate_blocks", "out_blocks"), out))
 
 
 def fused_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-5):

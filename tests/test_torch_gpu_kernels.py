@@ -140,9 +140,14 @@ def test_kernel_backward_matches_twin_autograd(cuda, name):
         assert rel <= 1e-3, (name, i, rel)
 
 
-@pytest.mark.parametrize("rows,c", [(1000, 320), (96, 640), (40, 1280), (7, 320)])
+@pytest.mark.parametrize("rows,c", [(1000, 320), (96, 640), (40, 1280), (7, 320), (200, 1280),
+                                    (64 + 5, 640), (256, 1280), (1, 320), (9000, 320)])
 def test_ff_kernel_matches_twin(cuda, rows, c):
-    """Row counts that leave a ragged last row tile."""
+    """Row counts that leave the last 128-row tile ragged, or its second
+    half of 64 rows partly or wholly empty ((200, 1280), (69, 640),
+    (40, 1280), (1, 320)); training's deepest shape (256, 1280), with fewer
+    blocks than SMs; (9000, 320), whose B-i blocks take several column
+    tiles, the two warpgroups taking turns."""
     g = torch.Generator(device=cuda).manual_seed(3)
     inner = 4 * c
     args = (_randn(g, rows, c), (1.0 + 0.1 * _randn(g, c).float()).bfloat16(),
@@ -155,6 +160,15 @@ def test_ff_kernel_matches_twin(cuda, rows, c):
     assert tff.fused_geglu_ff.launches == before + 1
     ref = tff.geglu_ff_reference(*(a.float() for a in args))
     assert (out.float() - ref).abs().max().item() <= 6e-2
+
+
+def test_ff_cases_cover_both_gate_kernels(cuda):
+    """The cases above reach both B-i kernels (LN(x) resident at C <= 640,
+    x streamed at C = 1280) with one and with several column tiles a
+    block, as the launcher chooses them."""
+    big, wide = tff.ff_grid(9000, 320, 1280), tff.ff_grid(200, 1280, 5120)
+    assert (big["gate_cols"], wide["gate_cols"]) == (64, 128)
+    assert big["gate_tiles"] > 1 and wide["gate_tiles"] == 1
 
 
 @pytest.mark.parametrize("f,e", [(16, 40), (16, 160), (32, 160), (5, 8)])

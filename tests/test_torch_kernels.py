@@ -92,10 +92,14 @@ def test_temporal_twin_matches_packed_kernel_and_xla(f, heads, e):
 # --- kernel B: fused LN + GEGLU FF + residual --------------------------------
 
 def _ff_args(rows, c, seed=0):
+    """Weights at 0.05, or 1/sqrt(fan-in) where that is smaller (C = 1280),
+    so that the outputs stay O(1) and one float32 tolerance holds at every
+    width."""
     inner = 4 * c
+    s1, s2 = min(0.05, c ** -0.5), min(0.05, inner ** -0.5)
     return (rnd(rows, c, seed=seed), 1.0 + rnd(c, seed=seed + 1, scale=0.1),
-            rnd(c, seed=seed + 2, scale=0.1), rnd(c, 2 * inner, seed=seed + 3, scale=0.05),
-            rnd(2 * inner, seed=seed + 4, scale=0.01), rnd(inner, c, seed=seed + 5, scale=0.05),
+            rnd(c, seed=seed + 2, scale=0.1), rnd(c, 2 * inner, seed=seed + 3, scale=s1),
+            rnd(2 * inner, seed=seed + 4, scale=0.01), rnd(inner, c, seed=seed + 5, scale=s2),
             rnd(c, seed=seed + 6, scale=0.01))
 
 
@@ -105,8 +109,10 @@ def _torch_ff_args(args):
     return x, ls, lb, w1.T.contiguous(), b1, w2.T.contiguous(), b2
 
 
-@pytest.mark.parametrize("rows,c", [(200, 32), (64, 64)])
+@pytest.mark.parametrize("rows,c", [(200, 32), (64, 64), (40, 1280)])
 def test_ff_twin_matches_reference_and_pallas(rows, c):
+    """C <= 640 reaches the JAX package's resident kernel, C = 1280 its
+    streamed kernel (weights in inner blocks, an f32 accumulator)."""
     args = _ff_args(rows, c)
     got = tff.geglu_ff_reference(*_torch_ff_args(args)).numpy()
     ref = jff.geglu_ff_reference(*(jnp.asarray(a) for a in args))
