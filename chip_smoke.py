@@ -3,10 +3,12 @@
 checkout, holds each against its plain PyTorch twin at the main paths'
 shapes, checks a full-width UNet call and its gradients against the CPU
 float32 run, drives the full-width dual-CFG video edit through
-``VideoEditor`` and trains the motion modules at full width for a few steps.
+``VideoEditor`` (plain and motion-compensated by RAFT), trains the motion
+modules at full width for a few steps, and runs the LOVEU-TGVE runner,
+its scorer and the edit CLI.
 
     python3 chip_smoke.py                # every phase, one GPU
-    python3 chip_smoke.py --only env,build,parity,grad,train,variants
+    python3 chip_smoke.py --only env,build,parity,grad,train,variants,flow,loveu
 
 Phases: env, build, parity (kernels A, A', B, C, D against their twins,
 with times, bounds and the one-call PyTorch yardstick), unet (GPU bf16 vs
@@ -19,7 +21,13 @@ switched on: one UNet call of the edit against the default kernels, then a
 GPU: the motion gradients against the CPU float32 run, and non-zero
 gradients behind kernels A, B and C), train (full-width motion-module
 training, 16 frames at 256x256, accumulation 2, remat and kernel A' on:
-3 Adam steps and one Adam8bit step, one of them profiled).
+3 Adam steps and one Adam8bit step, one of them profiled), flow (the
+32-frame edit with motion compensation through RAFT at full width, random
+weights: flow and denoise seconds per window, and the card's RAFT against
+the CPU's in float32), loveu (a one-video LOVEU-TGVE folder written
+through cv2; ``run_loveu_tgve`` at its defaults, 384x384, 32 frames, DDPM
+20, serially, resumed, and with ``--batch-edits 4``; ``score_loveu`` on its
+GIFs with a random ViT-L/14; ``edit_video`` with Farneback flow).
 It prints the card and its power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero with no result line. Weights are random from ``--seed``.
@@ -42,20 +50,25 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12    # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # kernel A: UNet attn1 at levels 0 and 1, then the VAE mid-block attention
-# (encode chunks of 16 frames, decode chunks of 8) at 256x384, and the
-# training VAE encode (16 frames at 256x256)
+# (encode chunks of 16 frames, decode chunks of 8) at 256x384, the
+# training VAE encode (16 frames at 256x256), then the LOVEU runner's
+# (384x384: UNet levels 0 and 1, VAE encode and decode)
 FLASH_SHAPES = [(48, 8, 1536, 40), (48, 8, 384, 80), (16, 1, 1536, 512), (8, 1, 1536, 512),
-                (16, 1, 1024, 512)]
+                (16, 1, 1024, 512), (48, 8, 2304, 40), (48, 8, 576, 80), (16, 1, 2304, 512),
+                (8, 1, 2304, 512)]
 # kernel A': the edit's UNet attn1 shapes of kernel A (the VAE's one head
 # takes A), then training's (16 frames at 256x256, where A' is on)
 HEADFOLD_SHAPES = FLASH_SHAPES[:2] + [(16, 8, 1024, 40), (16, 8, 256, 80)]
 # kernel B: (rows, C) of every spatial and motion FF at 48 frames of 32x48
-# (the edit), then at 16 frames of 32x32 (training)
+# (the edit), at 16 frames of 32x32 (training), at 48 frames of 48x48 (LOVEU)
 FF_SHAPES = [(73728, 320), (18432, 640), (4608, 1280), (1152, 1280),
-             (16384, 320), (4096, 640), (1024, 1280), (256, 1280)]
-# kernel C: (B, P, F, heads, e) of the motion modules at levels 0..3
+             (16384, 320), (4096, 640), (1024, 1280), (256, 1280),
+             (110592, 320), (27648, 640), (6912, 1280), (1728, 1280)]
+# kernel C: (B, P, F, heads, e) of the motion modules at levels 0..3, the
+# edit's (32x48 latents), then the LOVEU runner's (48x48)
 TEMPORAL_SHAPES = [(3, 1536, 16, 8, 40), (3, 384, 16, 8, 80), (3, 96, 16, 8, 160),
-                   (3, 24, 16, 8, 160)]
+                   (3, 24, 16, 8, 160), (3, 2304, 16, 8, 40), (3, 576, 16, 8, 80),
+                   (3, 144, 16, 8, 160), (3, 36, 16, 8, 160)]
 # kernel D: (rows, C) of the UNet's LayerNorms at 48 frames of 32x48 and
 # of CLIP's (48 prompts of 77 tokens)
 LN_SHAPES = [(73728, 320), (18432, 640), (4608, 1280), (48 * 77, 768)]
@@ -75,6 +88,14 @@ UNET_TOL, GRAD_TOL = 5e-2, 5e-2
 # difference to its own error level against f32 (each run within UNET_TOL
 # of the CPU float32 output; the unet phase holds both to it)
 VARIANT_TOL = UNET_TOL
+# relative L2 of RAFT's flow on the card (float32, cuDNN's default TF32
+# convolutions) against the CPU's float32 run on the same weights and pairs
+RAFT_TOL = 5e-2
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CONFIG = os.path.join(ROOT, "configs", "instruct_v2v.yaml")
+# a video of the packaged edit-instruction dict, so the runner's default
+# prompt source (the edit instructions) applies
+LOVEU_VIDEO = "gold-fish"
 
 
 def log(*a):
@@ -337,13 +358,7 @@ def phase_edit(models, args, gen):
                          tokenizer=HashTokenizer(), scheduler="ddim",
                          num_steps=args.steps, device="cuda")
     f, hgt, wid = EDIT_FRAMES, EDIT_HEIGHT, EDIT_WIDTH
-    # a smooth moving pattern in [-1, 1], made on the device from the seed
-    yy, xx = torch.meshgrid(torch.linspace(-1, 1, hgt, device="cuda"),
-                            torch.linspace(-1, 1, wid, device="cuda"), indexing="ij")
-    phase = torch.rand(3, generator=gen).cuda() * 6.28
-    tt = torch.arange(f, device="cuda").float()[:, None, None, None] * 0.1
-    frames = torch.sin(3 * xx[None, ..., None] + 2 * yy[None, ..., None] + tt + phase)
-    frames = (0.8 * frames).float().cpu().numpy()
+    frames = _edit_frames(gen)
     from insv2v_torch.diffusion.samplers import split_windows
 
     windows = split_windows(f, 16, 4)
@@ -360,8 +375,9 @@ def phase_edit(models, args, gen):
     log("edit stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
         + f"; total {wall:.3f}")
     win = [v for k, v in timings.items() if k.startswith("window_")]
+    per_step = sum(win) / (len(win) * args.steps)
     log(f"edit per window {sum(win) / len(win):.3f} s, per UNet step "
-        f"{sum(win) / (len(win) * args.steps):.4f} s; peak memory "
+        f"{per_step:.4f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     calls = len(windows) * args.steps
     vae_chunks = math.ceil(f / 16) + math.ceil(f / 8)
@@ -373,6 +389,218 @@ def phase_edit(models, args, gen):
         raise AssertionError(f"edit output shape {out.shape} or non-finite values")
     log(f"edit output: shape {out.shape}, range [{out.min():.3f}, {out.max():.3f}], "
         f"std {out.std():.4f}")
+    return counts, per_step
+
+
+def _edit_frames(gen, f=EDIT_FRAMES, hgt=EDIT_HEIGHT, wid=EDIT_WIDTH):
+    """A smooth moving pattern in [-1, 1] (F, H, W, 3), from the seed."""
+    yy, xx = torch.meshgrid(torch.linspace(-1, 1, hgt), torch.linspace(-1, 1, wid),
+                            indexing="ij")
+    phase = torch.rand(3, generator=gen) * 6.28
+    tt = torch.arange(f).float()[:, None, None, None] * 0.1
+    frames = torch.sin(3 * xx[None, ..., None] + 2 * yy[None, ..., None] + tt + phase)
+    return (0.8 * frames).float().numpy()
+
+
+def phase_flow(models, args, gen, plain_step):
+    """The edit phase's 32-frame 256x384 DDIM edit with motion compensation:
+    RaftFlow at the full RaftConfig (random weights from the seed) on the
+    card, each window's flows (4 refs x 12 queries, then 12 x 4) apart from
+    its denoise; then the card's RAFT, float32 with cuDNN's default TF32
+    convolutions and with TF32 off, against the CPU's float32 run on two of
+    the edit's frame pairs."""
+    import copy
+
+    from insv2v_torch import VideoEditor
+    from insv2v_torch.diffusion.samplers import split_windows
+    from insv2v_torch.models.raft import RaftConfig
+    from insv2v_torch.text.tokenizer import HashTokenizer
+    from insv2v_torch.utils.flow import RaftFlow
+
+    est = RaftFlow(allow_random=True, cfg=RaftConfig(), device="cuda", seed=args.seed)
+    editor = VideoEditor(models["unet"], models["vae"], models["text_model"],
+                         tokenizer=HashTokenizer(), scheduler="ddim", num_steps=args.steps,
+                         device="cuda")
+    frames = _edit_frames(gen)
+    windows = split_windows(EDIT_FRAMES, 16, 4)
+    pairs = [(w.num_frames - w.num_ref) * w.num_ref for w in windows[1:]]
+    log(f"flow: {EDIT_FRAMES} frames {EDIT_HEIGHT}x{EDIT_WIDTH}, DDIM {args.steps} steps, RAFT "
+        f"full config, TF32 convolutions {torch.backends.cudnn.allow_tf32}, (query, ref) "
+        f"pairs per follow-up window {pairs}")
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    t0 = time.perf_counter()
+    out = editor(frames, "make it snowy", frames_per_window=16, num_ref_frames=4,
+                 seed=args.seed, timings=timings, use_motion_compensation=True,
+                 flow_estimator=est)
+    wall = time.perf_counter() - t0
+    counts = _read_launches("flow", ("flash_attention", "fused_geglu_ff", "temporal_attention"))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("flow stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+        + f"; total {wall:.3f}")
+    win = [v for k, v in timings.items() if k.startswith("window_")]
+    step = sum(win) / (len(win) * args.steps)
+    for k, n in enumerate(pairs, start=1):
+        log(f"flow window {k}: {n} pairs, flows {timings[f'flows_{k}']:.3f} s "
+            f"({timings[f'flows_{k}'] / n * 1e3:.2f} ms per pair), denoise "
+            f"{timings[f'window_{k}']:.3f} s")
+    log(f"flow per UNet step {step:.4f} s (plain edit {plain_step if plain_step else 'not run'}); "
+        f"peak memory {peak:.2f} GiB")
+    if out.shape != (EDIT_FRAMES, EDIT_HEIGHT, EDIT_WIDTH, 3) or not np_finite(out):
+        raise AssertionError(f"flow edit output shape {out.shape} or non-finite values")
+
+    qs, rs = frames[[8, 20]], frames[[2, 14]]
+    cpu = copy.deepcopy(est.model).cpu()
+    with torch.no_grad():
+        ref = cpu(torch.from_numpy(qs), torch.from_numpy(rs))
+    del cpu
+    tf32 = torch.backends.cudnn.allow_tf32
+    errs = {}
+    for allow in (True, False):
+        torch.backends.cudnn.allow_tf32 = allow
+        got = est.batch(qs, rs).cpu()
+        errs[allow] = ((got - ref).norm() / ref.norm()).item()
+        epe = (got - ref).norm(dim=-1)
+        log(f"flow RAFT card vs CPU f32, 2 pairs {EDIT_HEIGHT}x{EDIT_WIDTH}, TF32 {allow}: "
+            f"rel L2 {errs[allow]:.3e} (tol {RAFT_TOL:g}), end-point error mean "
+            f"{epe.mean().item():.4e} px, max {epe.max().item():.4e} px; |flow| mean "
+            f"{ref.norm(dim=-1).mean().item():.3f} px")
+    # one window's 48 pairs (window 1: 12 queries x 4 refs), timed with
+    # TF32 on and off, then profiled with the default
+    q48 = frames[[q for q in range(4, 16) for _ in range(4)]]
+    r48 = frames[[r for _ in range(4, 16) for r in range(4)]]
+    for allow in (True, False):
+        torch.backends.cudnn.allow_tf32 = allow
+        ms = time_ms(lambda: est.batch(q48, r48), 3, warmup=1)
+        log(f"flow RAFT, 48 pairs (3 calls of 16), TF32 {allow}: {ms:.2f} ms, "
+            f"{ms / 48:.3f} ms per pair (events)")
+    torch.backends.cudnn.allow_tf32 = tf32
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        est.batch(q48, r48)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"flow RAFT profile, 48 pairs: {wall_ms:.2f} ms wall with the profiler, device busy "
+        f"{busy_ms:.2f} ms, {sum(e.count for e in kernels)} kernels; by class: "
+        f"{_by_class(kernels)}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"flow RAFT profile:   {e.self_device_time_total / 1e3:8.3f} ms  {e.count:5d} calls  "
+            f"{e.key[:100]}")
+    if not (torch.isfinite(ref).all() and errs[tf32] <= RAFT_TOL):
+        raise AssertionError(f"RAFT on the card disagrees with the CPU: {errs}")
+    return counts
+
+
+def _write_loveu(root, gen, frames=60, hgt=480, wid=854):
+    """A LOVEU-TGVE folder: one DAVIS video (a moving pattern from the seed,
+    mp4v at 24 fps through cv2) and the CSV with its header and section
+    row. Returns the video's path."""
+    import cv2
+    import numpy as np
+
+    folder = os.path.join(root, "DAVIS_480p", "480p_videos")
+    os.makedirs(folder)
+    path = os.path.join(folder, f"{LOVEU_VIDEO}.mp4")
+    video = (_edit_frames(gen, frames, hgt, wid) * 127.5 + 127.5).round().astype(np.uint8)
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 24, (wid, hgt))
+    for fr in video:
+        vw.write(fr[..., ::-1].copy())
+    vw.release()
+    with open(os.path.join(root, "LOVEU-TGVE-2023_Dataset.csv"), "w") as f:
+        f.write("Video name,Original,Style,Object,Background,Multiple\n")
+        f.write("DAVIS Videos:,,,,,\n")
+        f.write(f"{LOVEU_VIDEO},goldfish swimming,goldfish in ink,sharks swimming,"
+                "goldfish in a pond,sharks in a pond\n")
+    return path
+
+
+def phase_loveu(gen):
+    """The LOVEU-TGVE runner at its defaults (384x384, 32 frames, DDPM 20,
+    text CFG 7.5, video CFG 1.8, the packaged edit instructions), full
+    width with random weights, over a one-video folder: 4 edits in serial
+    chains (timed, launches counted), a resumed run that does no work, and
+    the 4 edits as one chain (``--batch-edits 4``); then the scorer on the
+    serial run's GIFs (ViT-L/14, random weights) and the edit CLI with
+    Farneback flow at 16 frames in windows of 12 (8 refs)."""
+    import tempfile
+
+    from insv2v_torch.apps import edit_video, run_loveu_tgve, score_loveu
+    from insv2v_torch.utils.media import load_gif
+
+    with tempfile.TemporaryDirectory() as tmp:
+        video = _write_loveu(tmp, gen)
+        argv = ["--config-path", CONFIG, "--data-dir", tmp, "--allow-random-weights",
+                "--limit-videos", "1"]
+        out, out_b = os.path.join(tmp, "out"), os.path.join(tmp, "out_batched")
+        _zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        serial = run_loveu_tgve.main(argv + ["--output-dir", out])
+        wall = time.perf_counter() - t0
+        counts = _read_launches("loveu", ("flash_attention", "fused_geglu_ff",
+                                          "temporal_attention"))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        gifs = sorted(f for f in os.listdir(out) if f.endswith(".gif"))
+        used = json.load(open(os.path.join(out, "prompts_used.json")))
+        saved = json.load(open(os.path.join(out, "throughput.json")))
+        log(f"loveu serial: {serial['videos']} edits, {serial['frames']} frames in "
+            f"{serial['seconds']:.3f} s of editing, {serial['output_seconds']:.3f} s writing "
+            f"GIFs and frames ({wall:.3f} s with model build and video read): "
+            f"{serial['frames_per_sec']:.4f} frames/s; peak memory {peak:.2f} GiB")
+        log("loveu serial stages summed (s): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in serial["stage_seconds"].items()))
+        steps = 20 * 3 * serial["videos"]
+        win = sum(v for k, v in serial["stage_seconds"].items() if k.startswith("window_"))
+        log(f"loveu per UNet step {win / steps:.4f} s; prompts: {sorted(set(used.values()))}")
+        gif = load_gif(os.path.join(out, gifs[0]))
+        if (len(gifs) != 4 or saved["videos"] != 4 or len(used) != 4
+                or gif.shape != (32, 384, 768, 3) or not np_finite(gif)):
+            raise AssertionError(f"loveu outputs: {gifs}, {saved}, {used}, {gif.shape}")
+        again = run_loveu_tgve.main(argv + ["--output-dir", out])
+        if again["videos"] != 0:
+            raise AssertionError(f"loveu resume did work: {again}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        batched = run_loveu_tgve.main(argv + ["--output-dir", out_b, "--batch-edits", "4"])
+        wall_b = time.perf_counter() - t0
+        log(f"loveu --batch-edits 4: {batched['frames']} frames in {batched['seconds']:.3f} s, "
+            f"{batched['output_seconds']:.3f} s writing GIFs and frames ({wall_b:.3f} s with "
+            f"model build and video read): {batched['frames_per_sec']:.4f} "
+            f"frames/s (serial {serial['frames_per_sec']:.4f}); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; stages summed (s): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in batched["stage_seconds"].items()))
+        if len([f for f in os.listdir(out_b) if f.endswith(".gif")]) != 4:
+            raise AssertionError("loveu --batch-edits 4 did not write 4 GIFs")
+
+        t0 = time.perf_counter()
+        scores = score_loveu.main(["--outputs", out, "--data-dir", tmp,
+                                   "--allow-random-weights"])
+        log(f"loveu scores ({time.perf_counter() - t0:.3f} s, ViT-L/14 random weights): "
+            + ", ".join(f"{k} {scores[k]:.4f}" for k in
+                        ("sim_0", "sim_1", "sim_direction", "sim_image")))
+        if scores["count"] != 4 or not all(math.isfinite(scores[k]) for k in
+                                           ("sim_0", "sim_1", "sim_direction", "sim_image")):
+            raise AssertionError(f"loveu scores: {scores}")
+
+        gif_path = os.path.join(tmp, "edited.gif")
+        t0 = time.perf_counter()
+        edit_video.main(["--video", video, "--prompt", "make it snowy", "--output", gif_path,
+                         "--config", CONFIG, "--allow-random-weights", "--num-frames", "16",
+                         "--frames-in-batch", "12", "--with-optical-flow",
+                         "--flow-estimator", "farneback"])
+        edited = load_gif(gif_path)
+        log(f"edit_video CLI, 16 frames 384x384, Farneback flow: {time.perf_counter() - t0:.3f} s "
+            f"with model build and I/O; GIF {edited.shape}")
+        if edited.shape != (16, 384, 768, 3) or not np_finite(edited):
+            raise AssertionError(f"edit_video output {edited.shape}")
     return counts
 
 
@@ -695,7 +923,8 @@ def phase_profile(models, gen):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", default="env,build,parity,unet,edit,profile,variants,grad,train")
+    ap.add_argument("--only", default="env,build,parity,unet,edit,flow,profile,variants,grad,"
+                                      "train,loveu")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -722,7 +951,7 @@ def main():
         phase_build()
     if "parity" in phases:
         entries = phase_parity(gen)
-    if {"unet", "edit", "profile", "variants", "grad", "train"} & set(phases):
+    if {"unet", "edit", "flow", "profile", "variants", "grad", "train"} & set(phases):
         from insv2v_torch.utils.factory import build_models
 
         t0 = time.perf_counter()
@@ -733,16 +962,22 @@ def main():
             f"{time.perf_counter() - t0:.1f} s")
         if "unet" in phases:
             phase_unet(models, cpu_gen)
+        plain_step = None
         if "edit" in phases:
-            paths["edit"] = phase_edit(models, args, cpu_gen)
+            paths["edit"], plain_step = phase_edit(models, args, cpu_gen)
+        if "flow" in phases:
+            paths["flow"] = phase_flow(models, args, cpu_gen, plain_step)
         if "profile" in phases:
             phase_profile(models, cpu_gen)
         if "variants" in phases:
             paths["variants"] = phase_variants(models, cpu_gen)
         if "grad" in phases:
             phase_grad(models, cpu_gen)
-        if "train" in phases:  # last: it trains the motion weights
+        if "train" in phases:  # last of these: it trains the motion weights
             paths["train"] = phase_train(models, args, gen)
+        del models
+    if "loveu" in phases:  # the runner builds its own models
+        paths["loveu"] = phase_loveu(cpu_gen)
     # each kernel's launches on the path it belongs to: A, B, C the edit's
     # (their first slice), A' training's, D the variant edit window's
     home = {"flash_attention": "edit", "fused_geglu_ff": "edit", "temporal_attention": "edit",

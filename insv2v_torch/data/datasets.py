@@ -1,13 +1,21 @@
-"""Training datasets: synthetic prompt-to-prompt video pairs, host side
-in numpy (channels-last, [-1, 1]).
+"""Datasets, host side in numpy (channels-last, [-1, 1]): the training
+pairs, the LOVEU-TGVE benchmark videos and single videos to edit.
 
-The port's own copy of ``data/datasets.py``'s ``VideoPromptToPromptDataset``
-and ``VideoPromptToPromptMotionAug`` in the JAX package (the reference's
-dataset/videoP2P.py): folders of ``image/{seed}_{0|1}_{idx:04d}.jpg``
-frames plus ``metadata.jsonl`` (CLIP-score gates) and ``prompt.json``,
-a random window of ``num_frames``, and the camera-motion augmentation
-(linear translation-crop and zoom, the same for both videos). cv2 is
-imported only where images are read or resized.
+The port's own copy of ``data/datasets.py`` in the JAX package:
+
+  * ``VideoPromptToPromptDataset`` and ``VideoPromptToPromptMotionAug``
+    (the reference's dataset/videoP2P.py): folders of
+    ``image/{seed}_{0|1}_{idx:04d}.jpg`` frames plus ``metadata.jsonl``
+    (CLIP-score gates) and ``prompt.json``, a random window of
+    ``num_frames``, and the camera-motion augmentation (linear
+    translation-crop and zoom, the same for both videos);
+  * ``LoveuTgveVideoDataset``: the LOVEU-TGVE-2023 CSV, whose section rows
+    (``DAVIS Videos:``, ...) name each video's folder, with the original
+    caption and four edited captions per video;
+  * ``SingleVideoDataset``: one video resampled to ``sampling_fps``,
+    resized to cover ``output_size`` and centre-cropped.
+
+cv2 is imported only where images or videos are read or resized.
 """
 
 from __future__ import annotations
@@ -18,7 +26,8 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["VideoPromptToPromptDataset", "VideoPromptToPromptMotionAug", "CLIP_SCORE_GATES",
+__all__ = ["VideoPromptToPromptDataset", "VideoPromptToPromptMotionAug",
+           "LoveuTgveVideoDataset", "SingleVideoDataset", "CLIP_SCORE_GATES",
            "dataset_from_config"]
 
 # metadata acceptance gates (videoP2P.py:35 / video_prompt_to_prompt.py:216)
@@ -219,6 +228,126 @@ class VideoPromptToPromptMotionAug(VideoPromptToPromptDataset):
             "output_prompt": prompt["output"],
             "edit_prompt": prompt["edit"],
         }
+
+
+class LoveuTgveVideoDataset:
+    """LOVEU-TGVE-2023: ``LOVEU-TGVE-2023_Dataset.csv`` under ``root_dir``
+    (a header row, then sections headed ``DAVIS Videos:``, ``Videvo
+    Videos:``, ``Youtube Videos:``) and the videos in
+    ``{davis,videvo,youtube}_480p/480p_videos/{name}.mp4``. An item is the
+    row's captions plus ``frames`` (every frame, resized to
+    ``image_size`` = (H, W)) and ``fps``."""
+
+    EDIT_KEYS = ("style", "object", "background", "multiple")
+
+    def __init__(self, root_dir: str, image_size: Tuple[int, int] = (480, 480)):
+        import csv
+
+        self.root_dir = root_dir
+        self.image_size = tuple(image_size)
+        self.data: Dict[str, Dict] = {}
+        source_folder = None
+        with open(os.path.join(root_dir, "LOVEU-TGVE-2023_Dataset.csv")) as f:
+            reader = csv.reader(f)
+            next(reader, None)
+            for row in reader:
+                if not row or len(row[0]) == 0:
+                    continue
+                if row[0].endswith("Videos:"):
+                    kind = row[0].split(" ")[0]
+                    source_folder = ("DAVIS_480p/480p_videos" if kind == "DAVIS"
+                                     else f"{kind.lower()}_480p/480p_videos")
+                elif len(row) > 1:
+                    self.data[row[0]] = {
+                        "video_name": row[0], "original": row[1], "style": row[2],
+                        "object": row[3], "background": row[4], "multiple": row[5],
+                        "source_folder": source_folder}
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def video_names(self) -> List[str]:
+        return list(self.data.keys())
+
+    def __getitem__(self, idx) -> Dict:
+        import cv2
+
+        name = idx if isinstance(idx, str) else self.video_names()[idx]
+        item = dict(self.data[name])
+        cap = cv2.VideoCapture(os.path.join(self.root_dir, item["source_folder"],
+                                            f"{name}.mp4"))
+        frames = []
+        try:
+            while True:
+                ok, fr = cap.read()
+                if not ok:
+                    break
+                # cv2.resize takes (width, height); image_size is (H, W)
+                fr = cv2.resize(fr, (self.image_size[1], self.image_size[0]))
+                frames.append(cv2.cvtColor(fr, cv2.COLOR_BGR2RGB))
+            fps = cap.get(cv2.CAP_PROP_FPS)
+        finally:
+            cap.release()
+        if not frames:
+            raise ValueError(f"no frames decoded for {name}")
+        item["frames"] = np.stack(frames).astype(np.float32) / 127.5 - 1.0
+        item["fps"] = fps
+        return item
+
+
+class SingleVideoDataset:
+    """Windows of one video, resampled to ``sampling_fps`` (a step of
+    round(source fps / sampling_fps) frames), resized to cover
+    ``output_size`` = (H, W) and centre-cropped; index k is the window
+    starting at second k, padded by repeating its last frame."""
+
+    def __init__(self, video_file: str, video_description: str = "", sampling_fps: int = 8,
+                 num_frames: int = 16, output_size: Tuple[int, int] = (384, 384)):
+        import cv2
+
+        self.video_file = video_file
+        self.video_description = video_description
+        self.sampling_fps = sampling_fps
+        self.num_frames = num_frames
+        self.output_size = tuple(output_size)
+        cap = cv2.VideoCapture(video_file)
+        try:
+            self.src_fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+            self.total_frames = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        finally:
+            cap.release()
+
+    def __len__(self) -> int:
+        return max(1, int(self.total_frames / self.src_fps))
+
+    def __getitem__(self, start_second: int) -> Dict:
+        import cv2
+
+        from insv2v_torch.utils.media import resize_frame
+
+        step = max(1, int(round(self.src_fps / self.sampling_fps)))
+        start = int(start_second * self.src_fps)
+        wanted = {start + i * step for i in range(self.num_frames)}
+        last = max(wanted)
+        cap = cv2.VideoCapture(self.video_file)
+        frames, idx = [], 0
+        try:
+            while idx <= last:
+                ok, fr = cap.read()
+                if not ok:
+                    break
+                if idx in wanted:
+                    fr = cv2.cvtColor(fr, cv2.COLOR_BGR2RGB)
+                    frames.append(resize_frame(fr, *self.output_size))
+                idx += 1
+        finally:
+            cap.release()
+        if not frames:
+            raise IndexError(f"no frames at second {start_second}")
+        while len(frames) < self.num_frames:
+            frames.append(frames[-1])
+        arr = np.stack(frames).astype(np.float32) / 127.5 - 1.0
+        return {"frames": arr, "text": self.video_description}
 
 
 _DATASETS = {"VideoPromptToPrompt": VideoPromptToPromptDataset,

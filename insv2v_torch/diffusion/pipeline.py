@@ -2,8 +2,11 @@
 
 Counterpart of ``diffusion/pipeline.py`` in the JAX package: tokenize ->
 CLIP encode -> chunked VAE encode (16 frames) of the conditioning video
--> sliding-window dual-CFG denoise chain with ref-frame anchoring ->
-chunked VAE decode (8 frames).
+-> sliding-window dual-CFG denoise chain with ref-frame anchoring,
+optionally motion-compensated: each follow-up window's optical flow from
+its query frames to its ref frames, computed once per window from the
+pixel frames, warps the refs' per-step deltas -> chunked VAE decode (8
+frames).
 
 Randomness goes through one seam, ``noise(kind, shape)``, which returns
 float32 standard normals on the editor's device. The kinds, in the order
@@ -26,6 +29,8 @@ from insv2v_torch._device import resolve_device
 from insv2v_torch.diffusion.samplers import sample_video_window, split_windows
 from insv2v_torch.diffusion.schedules import DiffusionSchedule, make_sampler_tables
 from insv2v_torch.models.vae import SD_SCALE_FACTOR
+from insv2v_torch.ops.resize import warp_image
+from insv2v_torch.utils.flow import get_flow_estimator, window_flows
 
 __all__ = ["VideoEditor", "GeneratorNoise"]
 
@@ -101,6 +106,16 @@ class VideoEditor:
                 for i in range(0, z.shape[0], chunk)]
         return torch.cat(outs, dim=0).numpy()
 
+    def _flows_and_masks(self, estimator, frames: np.ndarray, num_ref: int, latent_hw):
+        """A window's flows (F, R, h, w, 2) from its pixel frames, at
+        latent resolution on the editor's device, and their validity
+        masks (F, R, h, w, 1): a field of ones warped by each flow."""
+        flows = window_flows(estimator, frames, num_ref, latent_hw).to(self.device)
+        f, r, h, w, _ = flows.shape
+        ones = flows.new_ones((f * r, h, w, 1))
+        masks = warp_image(ones, flows.reshape(f * r, h, w, 2)).reshape(f, r, h, w, 1)
+        return flows, masks
+
     def _unet(self, sample, t, ctx, video_start_index):
         return self.unet(sample, t, ctx, video_start_index=video_start_index)
 
@@ -111,16 +126,19 @@ class VideoEditor:
                  text_cfg: float = 7.5, video_cfg: float = 1.2,
                  frames_per_window: int = 16, num_ref_frames: int = 4,
                  noise_correct_step: float = 0.5, negative_prompt: str = "",
-                 use_motion_compensation: bool = False, seed: int = 0,
+                 use_motion_compensation: bool = False, flow_estimator=None, seed: int = 0,
                  noise: Optional[Noise] = None, timings: Optional[dict] = None) -> np.ndarray:
         """Edit a video. frames (F, H, W, 3) float in [-1, 1]. Returns the
         edited frames (F, H, W, 3), or (B, F, H, W, 3) for a list of prompts
         (one shared chain: the same latents and noise for every prompt).
-        ``timings``, when given, receives the wall seconds of each stage
-        and of each window (the device is synchronised at stage ends)."""
-        if use_motion_compensation:
-            raise NotImplementedError(
-                "motion compensation is ROADMAP Queue 1 item 8 (flow-compensated edit)")
+        ``use_motion_compensation`` spreads the ref frames' deltas by
+        optical flow from ``flow_estimator`` (default
+        ``get_flow_estimator("auto")`` on the editor's device).
+        ``timings``, when given, receives the wall seconds of each stage,
+        of each window's denoise (``window_k``) and of each window's flow
+        (``flows_k``; the device is synchronised at stage ends)."""
+        if use_motion_compensation and flow_estimator is None:
+            flow_estimator = get_flow_estimator(device=self.device)
         clock = _StageClock(self.device, timings)
         noise = noise or GeneratorNoise(seed, self.device)
         prompts = [edit_prompt] if isinstance(edit_prompt, str) else list(edit_prompt)
@@ -137,12 +155,12 @@ class VideoEditor:
         _, _, h, w, ch = cond.shape
         share = lambda t: t.expand((b,) + t.shape[1:])
         step_noise = lambda i, shape: noise("step", shape)
-        run = lambda init, spec, ref, n_ref: sample_video_window(
+        run = lambda init, spec, ref, n_ref, flows=None, masks=None: sample_video_window(
             self._unet, self.tables, init, cond[:, spec.start: spec.start + spec.num_frames],
             text_cond, text_uncond, text_cfg=text_cfg, img_cfg=video_cfg,
             video_start_index=spec.start, latent_ref=ref, num_ref_frames=n_ref,
-            noise_correct_step=noise_correct_step, step_noise=step_noise,
-            share_batch_noise=True)["latent"]
+            noise_correct_step=noise_correct_step, flows=flows, flow_masks=masks,
+            step_noise=step_noise, share_batch_noise=True)["latent"]
 
         w0 = windows[0]
         init = share(noise("init", (1, w0.num_frames, h, w, ch)))
@@ -157,7 +175,13 @@ class VideoEditor:
             init = torch.cat([init[:, -spec.num_ref:], new_noise], dim=1)
             ref = torch.cat([latent_pred[:, -spec.num_ref:],
                              latent_pred.new_zeros((b, n_new, h, w, ch))], dim=1)
-            latent_pred = run(init, spec, ref, spec.num_ref)
+            flows = masks = None
+            if use_motion_compensation:
+                flows, masks = self._flows_and_masks(
+                    flow_estimator, frames[spec.start: spec.start + spec.num_frames],
+                    spec.num_ref, (h, w))
+                clock.mark(f"flows_{k}")
+            latent_pred = run(init, spec, ref, spec.num_ref, flows, masks)
             outs.append(latent_pred[:, spec.num_ref:])
             clock.mark(f"window_{k}")
 

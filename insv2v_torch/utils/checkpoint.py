@@ -18,6 +18,12 @@ conversion beyond the reference's own wrappers:
 The training state is the step, the float32 motion masters and the
 optimizer's state (JAX: an orbax ``TrainState``), one file per step
 under ``step_XXXXXXXX.pt``.
+
+The scorer's and the flow model's weights load the same way: a HF
+``CLIPModel`` state dict (``text_model.*``, ``vision_model.*``,
+``visual_projection.weight``, ``text_projection.weight``; its
+``position_ids`` buffers and ``logit_scale`` are dropped) and a
+princeton-vl RAFT ``.pth`` (DataParallel's ``module.`` prefix stripped).
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ from typing import Dict, Mapping, Optional
 import torch
 
 __all__ = ["strip_prefixes", "load_torch_weights", "split_fused", "load_pipeline_state_dicts",
-           "load_into", "save_train_state", "restore_train_state"]
+           "load_into", "load_clip_model_state_dict", "load_raft_state_dict",
+           "save_train_state", "restore_train_state"]
 
 
 def strip_prefixes(sd: Mapping, prefixes=("_forward_module.",)) -> Dict[str, torch.Tensor]:
@@ -117,6 +124,25 @@ def load_into(models: Mapping[str, torch.nn.Module],
         if unexpected:
             raise ValueError(f"{part}: keys the model does not have: {sorted(unexpected)[:5]}")
         module.load_state_dict(sd, strict=False)
+
+
+def load_clip_model_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A HF ``CLIPModel`` checkpoint -> its state dict in the port's (HF)
+    key layout, without the ``position_ids`` buffers and ``logit_scale``."""
+    return {k: v for k, v in load_torch_weights(path).items()
+            if not k.endswith("position_ids") and k != "logit_scale"}
+
+
+def load_raft_state_dict(model: torch.nn.Module, source) -> None:
+    """Load a princeton-vl RAFT checkpoint (a path or a state dict) into the
+    port's ``RAFT``: the ``module.`` prefix stripped, every model key but
+    the BatchNorms' ``num_batches_tracked`` required, no unknown key."""
+    sd = load_torch_weights(source) if isinstance(source, str) else source
+    sd = strip_prefixes(sd, ("_forward_module.", "module."))
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError(f"RAFT checkpoint: missing {missing[:5]}, unknown {unexpected[:5]}")
 
 
 def save_train_state(state, ckpt_dir: str, step: Optional[int] = None) -> str:

@@ -3,14 +3,23 @@
 packages (and the JAX package's own trees can be served by the port).
 
 ``torch_state_dict_from_flax(tree, kind)`` for ``kind`` in
-{"unet3d", "vae", "clip_text"} undoes ``convert_unet3d_state_dict``,
-``convert_vae_state_dict`` and ``convert_clip_text_state_dict``:
+{"unet3d", "vae", "clip_text", "raft", "clip_model"} undoes
+``convert_unet3d_state_dict``, ``convert_vae_state_dict``,
+``convert_clip_text_state_dict``, ``convert_raft_state_dict`` and
+``convert_clip_model_state_dict``:
 
   * conv ``kernel`` (kh, kw, I, O) -> ``weight`` (O, I, kh, kw)
   * dense ``kernel`` (I, O)        -> ``weight`` (O, I)
   * norm ``scale``                 -> ``weight``; ``embedding`` -> ``weight``
   * the module renamings in reverse (``down_blocks_0`` -> ``down_blocks.0``,
-    ``ff/geglu_proj`` -> ``ff.net.0.proj``, ``to_out`` -> ``to_out.0``, ...).
+    ``ff/geglu_proj`` -> ``ff.net.0.proj``, ``to_out`` -> ``to_out.0``, ...);
+  * RAFT: ``layer1_0`` -> ``layer1.0``, the 1x1 ``downsample`` conv ->
+    ``downsample.0``, a BatchNorm's ``mean`` / ``var`` -> ``running_mean``
+    / ``running_var``, and each ``norm3`` also as ``downsample.1`` (the
+    princeton-vl modules register that norm under both names);
+  * the HF ``CLIPModel``: ``text`` -> ``text_model.*``, ``vision`` ->
+    ``vision_model.*`` (``embeddings.{class,patch,position}_embedding``,
+    ``encoder.layers.N``), and the two bias-free projections.
 """
 
 from __future__ import annotations
@@ -93,6 +102,48 @@ def _vae_module(parts: List[str]) -> List[str]:
     return out
 
 
+_RAFT_LAYER = re.compile(r"^layer(\d)_(\d)$")
+
+
+def _raft_module(parts: List[str]) -> List[str]:
+    out: List[str] = []
+    for i, p in enumerate(parts):
+        m = _RAFT_LAYER.match(p)
+        if m:
+            out += [f"layer{m.group(1)}", m.group(2)]
+        elif p == "downsample":
+            out += ["downsample", "0"]
+        elif p in ("mask_0", "mask_2"):
+            out += ["mask", p[-1]]
+        elif p in ("mean", "var") and i == len(parts) - 1:
+            out.append("running_" + p)
+        else:
+            out.append(p)
+    return out
+
+
+def _vision_module(parts: List[str]) -> List[str]:
+    out = ["vision_model"]
+    for p in parts:
+        m = _INDEXED.match(p)
+        if m and m.group(1) == "layers":
+            out += ["encoder", "layers", m.group(2)]
+        elif p in ("class_embedding", "patch_embedding", "position_embedding"):
+            out += ["embeddings", p]
+        else:
+            out.append(p)
+    return out
+
+
+def _clip_model_module(parts: List[str]) -> List[str]:
+    head, rest = parts[0], parts[1:]
+    if head == "text":
+        return _clip_module(rest)
+    if head == "vision":
+        return _vision_module(rest)
+    return rest  # visual_projection/visual_projection/weight -> visual_projection.weight
+
+
 def _clip_module(parts: List[str]) -> List[str]:
     out = ["text_model"]
     for p in parts:
@@ -106,16 +157,20 @@ def _clip_module(parts: List[str]) -> List[str]:
     return out
 
 
-_MODULE_RULES = {"unet3d": _unet_module, "vae": _vae_module, "clip_text": _clip_module}
+_MODULE_RULES = {"unet3d": _unet_module, "vae": _vae_module, "clip_text": _clip_module,
+                 "raft": _raft_module, "clip_model": _clip_model_module}
 
 
 def torch_state_dict_from_flax(params: Mapping[str, Any], kind: str) -> Dict[str, torch.Tensor]:
     """A numpy (or array-like) Flax param tree -> the port module's state
-    dict, as float32 CPU tensors."""
+    dict, as float32 CPU tensors. Each rule renames the whole key path,
+    the (already renamed) leaf included."""
     rule = _MODULE_RULES[kind]
     sd = {}
     for path, v in flatten(params).items():
         name, val = _leaf(path[-1], np.asarray(v, dtype=np.float32))
-        key = ".".join(rule(list(path[:-1])) + [name])
-        sd[key] = torch.tensor(val)
+        sd[".".join(rule(list(path[:-1]) + [name]))] = torch.tensor(val)
+    if kind == "raft":
+        sd.update({k.replace(".norm3.", ".downsample.1."): v for k, v in sd.items()
+                   if ".norm3." in k})
     return sd

@@ -170,8 +170,3 @@ def test_window_matches_golden_snapshot():
     np.testing.assert_allclose(got.numpy(), np.load(os.path.join(GOLDEN, "window_sampler.npz"))["latent"],
                                atol=2e-4)
 
-
-def test_flow_branch_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsamp.sample_video_window(None, tsched.make_sampler_tables(TS, 2), torch.zeros(1, 2, 2, 2, 4),
-                                  torch.zeros(1, 2, 2, 2, 4), None, None, flows=torch.zeros(1))

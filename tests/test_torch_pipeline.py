@@ -196,10 +196,3 @@ def test_entry_points_raise_without_a_gpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_models()
 
-
-def test_motion_compensation_is_not_ported_yet():
-    (unet, vae, clip), _ = tiny_models()
-    ted = VideoEditor(unet, vae, clip, tokenizer=TinyTokenizer(), device="cpu",
-                      dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ted(np.zeros((2, 32, 32, 3), np.float32), "x", use_motion_compensation=True)
