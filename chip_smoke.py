@@ -5,10 +5,11 @@ shapes, checks a full-width UNet call and its gradients against the CPU
 float32 run, drives the full-width dual-CFG video edit through
 ``VideoEditor`` (plain and motion-compensated by RAFT), trains the motion
 modules at full width for a few steps, and runs the LOVEU-TGVE runner,
-its scorer and the edit CLI.
+its scorer and the edit CLI, and generates synthetic prompt-to-prompt
+pairs with the full-width ModelScope UNet.
 
     python3 chip_smoke.py                # every phase, one GPU
-    python3 chip_smoke.py --only env,build,parity,grad,train,variants,flow,loveu
+    python3 chip_smoke.py --only env,build,parity,grad,train,variants,flow,loveu,datagen
 
 Phases: env, build, parity (kernels A, A', B, C, D against their twins,
 with times, bounds and the one-call PyTorch yardstick), unet (GPU bf16 vs
@@ -27,7 +28,11 @@ weights: flow and denoise seconds per window, and the card's RAFT against
 the CPU's in float32), loveu (a one-video LOVEU-TGVE folder written
 through cv2; ``run_loveu_tgve`` at its defaults, 384x384, 32 frames, DDPM
 20, serially, resumed, and with ``--batch-edits 4``; ``score_loveu`` on its
-GIFs with a random ViT-L/14; ``edit_video`` with Farneback flow).
+GIFs with a random ViT-L/14; ``edit_video`` with Farneback flow),
+datagen (the full-width ModelScope UNetSD, GPU bf16 vs CPU float32 with
+a plain, a (key, value) and an ``sa_share`` context; ``generate_dataset``
+at its defaults, v2 with the CLIP filter over random ViT-L/14 weights and
+v1 without it: seconds per pair and per UNetSD call, kernel A's launches).
 It prints the card and its power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero with no result line. Weights are random from ``--seed``.
@@ -53,12 +58,18 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # (encode chunks of 16 frames, decode chunks of 8) at 256x384, the
 # training VAE encode (16 frames at 256x256), then the LOVEU runner's
 # (384x384: UNet levels 0 and 1, VAE encode and decode)
+# and data generation's: ModelScope's UNetSD attn1 at d = 64, levels 0 and 1
+# of a 4-way phase-1 call (4 x 16 frames of 32x32 latents) and of a 2-way
+# phase-2/3 call
+DATAGEN_FLASH_SHAPES = [(64, 5, 1024, 64), (64, 10, 256, 64), (32, 5, 1024, 64),
+                        (32, 10, 256, 64)]
 FLASH_SHAPES = [(48, 8, 1536, 40), (48, 8, 384, 80), (16, 1, 1536, 512), (8, 1, 1536, 512),
                 (16, 1, 1024, 512), (48, 8, 2304, 40), (48, 8, 576, 80), (16, 1, 2304, 512),
-                (8, 1, 2304, 512)]
+                (8, 1, 2304, 512)] + DATAGEN_FLASH_SHAPES
 # kernel A': the edit's UNet attn1 shapes of kernel A (the VAE's one head
-# takes A), then training's (16 frames at 256x256, where A' is on)
-HEADFOLD_SHAPES = FLASH_SHAPES[:2] + [(16, 8, 1024, 40), (16, 8, 256, 80)]
+# takes A), then training's (16 frames at 256x256, where A' is on), then
+# data generation's (A' there only with INSV2V_FLASH_HEADFOLD=1)
+HEADFOLD_SHAPES = FLASH_SHAPES[:2] + [(16, 8, 1024, 40), (16, 8, 256, 80)] + DATAGEN_FLASH_SHAPES
 # kernel B: (rows, C) of every spatial and motion FF at 48 frames of 32x48
 # (the edit), at 16 frames of 32x32 (training), at 48 frames of 48x48 (LOVEU)
 FF_SHAPES = [(73728, 320), (18432, 640), (4608, 1280), (1152, 1280),
@@ -88,6 +99,9 @@ UNET_TOL, GRAD_TOL = 5e-2, 5e-2
 # difference to its own error level against f32 (each run within UNET_TOL
 # of the CPU float32 output; the unet phase holds both to it)
 VARIANT_TOL = UNET_TOL
+# data generation: the JAX CLI's defaults (v2, 16 frames, latent 32, DDIM 30)
+DATAGEN_PROMPT = {"input": "a cat walking on the grass", "output": "a dog walking on the grass",
+                  "edit": "turn the cat into a dog"}
 # relative L2 of RAFT's flow on the card (float32, cuDNN's default TF32
 # convolutions) against the CPU's float32 run on the same weights and pairs
 RAFT_TOL = 5e-2
@@ -604,6 +618,147 @@ def phase_loveu(gen):
     return counts
 
 
+def _wake_zero_weights(model, gen):
+    """ModelScope zero-inits the last conv of every ResBlock, temporal conv
+    stack and the output head, and each transformer's proj_out, which
+    would hide those paths (kernel A's attention among them) from an
+    output check: give every all-zero weight random values of unit gain
+    (std fan_in ** -0.5), drawn on the CPU from ``gen``."""
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.ndim >= 2 and not p.any():
+                fan_in = p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=gen) * fan_in ** -0.5)
+
+
+def phase_datagen(args, gen):
+    """Data generation on the card. First the full-width ModelScope UNetSD
+    (random weights from the seed, its zero-initialised weights woken), one
+    call in bf16 on the GPU against the same bf16-rounded weights in
+    float32 on the CPU, on 2 frames of 16x16 latents (level 0 at S = 256
+    takes kernel A at d = 64): a plain context (batch 2), the (key, value)
+    tuple (batch 2) and the 4-way ``sa_share`` batch. Then
+    ``apps/generate_dataset.main`` at the CLI defaults (v2, 16 frames,
+    latent 32, DDIM 30; full-width UNetSD, OpenCLIP ViT-H/14 text and VAE
+    in bf16, built on the card) for one prompt triple, one attempt, the
+    UNetSD loaded from that woken state dict (``--unet-ckpt``; the text
+    tower and the VAE random), with the CLIP filter on over a random
+    ViT-L/14 checkpoint (``--clip-filter-ckpt``); then one v1 pair without
+    the filter. Seconds per pair and per UNetSD call
+    of each phase, text-encode and decode seconds, peak memory, kernel A's
+    launches per pair; the written folders are read back."""
+    import copy
+    import tempfile
+
+    import numpy as np
+
+    from insv2v_torch.apps import generate_dataset
+    from insv2v_torch.data.datasets import VideoPromptToPromptDataset
+    from insv2v_torch.models.modelscope_t2v import ModelScopeConfig, UNetSD
+    from insv2v_torch.utils.clip_metrics import clip_models
+
+    cfg = ModelScopeConfig()
+    t0 = time.perf_counter()
+    torch.manual_seed(args.seed)
+    with torch.device("cuda"):
+        unet = UNetSD(cfg)
+    _wake_zero_weights(unet, gen)
+    unet = unet.to(torch.bfloat16).eval()
+    cpu = copy.deepcopy(unet).to("cpu", torch.float32)
+    log(f"datagen: UNetSD full width, {sum(p.numel() for p in unet.parameters()) / 1e6:.1f} M "
+        f"parameters, built on the card in {time.perf_counter() - t0:.1f} s")
+    x4 = torch.randn(4, 2, 16, 16, 4, generator=gen)
+    ctx = [torch.randn(4, 77, cfg.context_dim, generator=gen) for _ in range(2)]
+    t = torch.tensor(501)
+    cases = {"plain context": (x4[:2], ctx[0][:2], False),
+             "(key, value) tuple": (x4[:2], (ctx[0][:2], ctx[1][:2]), False),
+             "4-way sa_share": (x4, ctx[0], True)}
+    cuda = lambda c: tuple(a.cuda() for a in c) if isinstance(c, tuple) else c.cuda()
+    for label, (x, c, share) in cases.items():
+        with torch.no_grad():
+            ref = cpu(x, t, c, sa_share=share)
+            _zero_launches()
+            got = unet(x.cuda(), t.cuda(), cuda(c), sa_share=share).float().cpu()
+            counts = _read_launches(f"UNetSD check ({label})", ("flash_attention",))
+        rel = ((got - ref).norm() / ref.norm()).item()
+        log(f"datagen UNetSD full width, {x.shape[0]}x2x16x16 latent, {label}: rel L2 err GPU "
+            f"bf16 vs CPU f32 {rel:.3e} (tol {UNET_TOL:g}), max |ref| "
+            f"{ref.abs().max().item():.3f}, kernel A launches {counts['flash_attention']}")
+        if not (torch.isfinite(got).all() and rel <= UNET_TOL):
+            raise AssertionError(f"UNetSD GPU/CPU disagreement, {label}: {rel}")
+    del cpu
+    # where one UNetSD call of the generation spends its device time: the
+    # 4-way phase-1 call and a 2-way call of phases 2-3 (16 frames of 32x32)
+    for label, b, share in (("one 4-way phase-1 UNetSD call", 4, True),
+                            ("one 2-way UNetSD call", 2, False)):
+        x = torch.randn(b, 16, 32, 32, 4, generator=gen).cuda()
+        c = torch.randn(b, 77, cfg.context_dim, generator=gen).cuda()
+        _profile_call(lambda: unet(x, t.cuda(), c, sa_share=share), "datagen profile", label)
+    with tempfile.TemporaryDirectory() as tmp:
+        unet_ckpt = os.path.join(tmp, "unet_sd.pth")
+        torch.save(unet.state_dict(), unet_ckpt)
+        del unet
+        torch.cuda.empty_cache()
+        prompts = os.path.join(tmp, "prompts.json")
+        with open(prompts, "w") as f:
+            json.dump([DATAGEN_PROMPT], f)
+        clip_ckpt = os.path.join(tmp, "clip_vit_l14.bin")
+        torch.save({k: v.to(torch.bfloat16) for m in clip_models(seed=args.seed).values()
+                    for k, v in m.state_dict().items()}, clip_ckpt)
+        argv = ["--prompts", prompts, "--unet-ckpt", unet_ckpt, "--allow-random-weights",
+                "--num-samples", "1", "--max-attempts", "1", "--seed", str(args.seed)]
+        runs = {}
+        for version, extra in (("v2", ["--clip-filter-ckpt", clip_ckpt]),
+                               ("v1", ["--no-clip-filter"])):
+            out = os.path.join(tmp, version)
+            _zero_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = generate_dataset.main(argv + ["--output-dir", out, "--ptp-version", version]
+                                        + extra)
+            wall = time.perf_counter() - t0
+            counts = _read_launches(f"datagen {version}", ("flash_attention",))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            rec, st = res["records"][0], res["timings"][0]
+            sa, steps = st["sa_steps"], generate_dataset.build_parser().get_default("steps")
+            calls = sa + 2 * (steps - sa)  # phase 1: one call a step; then two
+            log(f"datagen {version}: {wall:.3f} s with model build; pair {st['pair']:.3f} s: text "
+                f"encode {st['text']:.3f} s, sampling {st['sample']:.3f} s (phase 1 "
+                f"{st['phase1']:.3f}, 2 {st['phase2']:.3f}, 3 {st['phase3']:.3f}; sa/ca steps "
+                f"{sa}/{st['ca_steps']}), VAE decode {st['decode']:.3f} s, CLIP score "
+                f"{st['score']:.3f} s, write {st['write']:.3f} s; peak memory {peak:.2f} GiB")
+            per_2way = (st["phase2"] + st["phase3"]) / (2 * (steps - sa))
+            phase1 = st["phase1"] / sa
+            log(f"datagen {version}: per UNetSD call: phase 1 {phase1:.4f} s "
+                f"({'4-way' if version == 'v2' else '2-way'}), phases 2-3 {per_2way:.4f} s "
+                f"(2-way); {calls} UNetSD calls; kernel A launches {counts['flash_attention']} "
+                f"(d = 64: 10 per UNetSD call = {10 * calls}, + 2 VAE decodes at d = 512)")
+            log(f"datagen {version} record: {rec}")
+            if counts["flash_attention"] != 10 * calls + 2:
+                raise AssertionError(f"datagen {version}: {counts['flash_attention']} launches of "
+                                     f"kernel A, not {10 * calls + 2}")
+            scores = [rec[k] for k in ("sim_0", "sim_1", "sim_dir", "sim_image")]
+            if not (rec["ptp_version"] == version and all(map(math.isfinite, scores))):
+                raise AssertionError(f"datagen {version} record {rec}")
+            sample = os.path.join(out, "sample_000000")
+            jpgs = [f for f in os.listdir(os.path.join(sample, "image")) if f.endswith(".jpg")]
+            if len(jpgs) != (32 if rec["accepted"] else 0) or not os.path.exists(
+                    os.path.join(sample, "prompt.json")):
+                raise AssertionError(f"datagen {version}: {len(jpgs)} JPEGs, record {rec}")
+            if rec["accepted"]:
+                item = VideoPromptToPromptDataset(out, num_frames=16,
+                                                  rng=np.random.RandomState(0))[0]
+                if item["input_video"].shape != (16, 256, 256, 3) or item["edited_video"].shape \
+                        != (16, 256, 256, 3) or item["output_prompt"] != DATAGEN_PROMPT["output"]:
+                    raise AssertionError(f"datagen {version}: read back {item['input_video'].shape}")
+                log(f"datagen {version}: 32 JPEGs, prompt.json, the record and the GIF written; "
+                    f"the dataset reads the pair back ({item['input_video'].shape})")
+            runs[version] = (counts, rec)
+    if not runs["v1"][1]["accepted"]:
+        raise AssertionError("datagen v1 without the filter was not accepted")
+    return runs["v2"][0]
+
+
 def _kernel_fns():
     """Every kernel wrapper, by name; each counts its own launches."""
     from insv2v_torch.ops.attention import (flash_attention, flash_attention_headfold,
@@ -886,18 +1041,13 @@ def _by_class(kernels) -> str:
                                                              key=lambda kv: -kv[1]))
 
 
-def phase_profile(models, gen):
-    """Where one UNet call of the edit (3 x 16 frames of 32x48) spends its
-    device time: torch.profiler over one call, kernel time summed by class,
-    and the device's busy share of the call's synchronised wall time."""
+def _profile_call(call, tag, label):
+    """One call's synchronised wall time, then its device time under
+    torch.profiler summed by kernel class, and the device's busy share of
+    the wall time; the dozen longest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    unet = models["unet"]
-    x = torch.randn(3, 16, 32, 48, 8, generator=gen).cuda().bfloat16()
-    ctx = torch.randn(3, 77, 768, generator=gen).cuda().bfloat16()
-    t = torch.full((3,), 501, device="cuda")
-    call = lambda: unet(x, t, ctx, video_start_index=0)
     with torch.no_grad():
         call()
         torch.cuda.synchronize()
@@ -911,20 +1061,31 @@ def phase_profile(models, gen):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not kernels:
-        log("profile: the profiler recorded no device time; breakdown not measured")
+        log(f"{tag}: the profiler recorded no device time; breakdown not measured")
         return
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"profile: one UNet call {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms "
+    log(f"{tag}: {label} {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms "
         f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}); by class: {_by_class(kernels)}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"profile:   {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d} calls  "
+        log(f"{tag}:   {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d} calls  "
             f"{e.key[:110]}")
+
+
+def phase_profile(models, gen):
+    """Where one UNet call of the edit (3 x 16 frames of 32x48) spends its
+    device time: torch.profiler over one call, kernel time summed by class,
+    and the device's busy share of the call's synchronised wall time."""
+    unet = models["unet"]
+    x = torch.randn(3, 16, 32, 48, 8, generator=gen).cuda().bfloat16()
+    ctx = torch.randn(3, 77, 768, generator=gen).cuda().bfloat16()
+    t = torch.full((3,), 501, device="cuda")
+    _profile_call(lambda: unet(x, t, ctx, video_start_index=0), "profile", "one UNet call")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="env,build,parity,unet,edit,flow,profile,variants,grad,"
-                                      "train,loveu")
+                                      "train,loveu,datagen")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -978,6 +1139,8 @@ def main():
         del models
     if "loveu" in phases:  # the runner builds its own models
         paths["loveu"] = phase_loveu(cpu_gen)
+    if "datagen" in phases:  # the generator builds its own models
+        paths["datagen"] = phase_datagen(args, cpu_gen)
     # each kernel's launches on the path it belongs to: A, B, C the edit's
     # (their first slice), A' training's, D the variant edit window's
     home = {"flash_attention": "edit", "fused_geglu_ff": "edit", "temporal_attention": "edit",

@@ -6,12 +6,13 @@
 // (batch*head, query block), softmax(q k^T * scale) v with a running max,
 // sum and f32 accumulator over key tiles; keys past Sk are masked to -inf.
 //
-// Bound on the H100: at the UNet shapes (S = 1536 or 384, d = 40 or 80)
-// the work is ~4*S*S*d FLOPs against 4*S*d*2 bytes, S/2 FLOP/byte, above
-// the card's ~295 FLOP/byte balance point at S = 1536 (bound by tensor-core
-// operations; at d = 40 the S*S exponentials of the softmax weigh as much
-// as the products) and below it at S = 384 (bound by bytes); the VAE
-// mid-block (d = 512, S = 1536) is bound by operations.
+// Bound on the H100: at the UNet shapes (S = 1536 or 384, d = 40 or 80;
+// ModelScope's S = 1024 or 256 at d = 64) the work is ~4*S*S*d FLOPs
+// against 4*S*d*2 bytes, S/2 FLOP/byte, above the card's ~295 FLOP/byte
+// balance point at S = 1536 and 1024 (bound by tensor-core operations; at
+// d = 40 the S*S exponentials of the softmax weigh as much as the products)
+// and below it at S = 384 and 256 (bound by bytes); the VAE mid-block
+// (d = 512, S = 1536) is bound by operations.
 //
 // Every block has one producer warpgroup and two or three consumer
 // warpgroups of 64 query rows each. A producer thread streams Q once per
@@ -26,11 +27,11 @@
 // the row sum and writes bf16 straight from registers. The producer gives
 // registers to the consumers (setmaxnreg).
 //
-//  * d = 40 and 80 (kernels A and A'): 64-key tiles in a 3- or 4-stage
+//  * d = 40, 64 and 80 (kernels A and A'): 64-key tiles in a 3- or 4-stage
 //    ring. Operands are TMA boxes of 64 columns in the 128-byte swizzle,
 //    zero past column d (TMA's out-of-bound fill: nothing is padded in
-//    device memory), so Q K^T contracts over 48 or 80 and P V is m64n48 or
-//    m64n80 (part of a swizzle atom). Each warpgroup pipelines its tiles:
+//    device memory), so Q K^T contracts over 48, 64 or 80 and P V is
+//    m64n48, m64n64 or m64n80 (part of a swizzle atom, one atom at d = 64). Each warpgroup pipelines its tiles:
 //    Q K^T of tile t + 1 and P V of tile t are in flight while the softmax
 //    of tile t + 1 runs. The warpgroups of a block share one K/V ring (one
 //    head, query rows 64 apart), so a K/V tile crosses from L2 once per 128
@@ -165,7 +166,7 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ o, const float (&a
   }
 }
 
-// --- d = 40 and 80 ----------------------------------------------------------
+// --- d = 40, 64 and 80 ----------------------------------------------------------
 
 template <int DP, int NWG, bool SPLIT>
 struct Narrow {
@@ -522,10 +523,10 @@ bool flash_maps(CUtensorMap (&m)[3], const bf16* q, const bf16* k, const bf16* v
 // The launch at (b, heads, sq, d rounded up to 16): consumer warpgroups a
 // block, whether each has a K/V ring of its own (kernel A' only), query
 // blocks of one head, the work items and the blocks launched.
-//  * Kernel A (d = 40, 80): persistent blocks over the (batch*head, query
-//    block) items, their warpgroups sharing each K/V tile: three (192
-//    query rows) at d = 40, two (128) at d = 80, whose three would spill at
-//    160 registers a thread.
+//  * Kernel A (d = 40, 64, 80): persistent blocks over the (batch*head,
+//    query block) items, their warpgroups sharing each K/V tile: three (192
+//    query rows) at d = 40 and 64, two (128) at d = 80, whose three would
+//    spill at 160 registers a thread.
 //  * Kernel A': one block per (batch, query block): three warpgroups on a
 //    shared ring while those 192-query blocks fill half the SMs, else two
 //    warpgroups with a ring each over 64-query blocks (three times the
@@ -602,8 +603,8 @@ cudaError_t launch_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o, in
 }  // namespace
 
 // q: (bh, sq, d), k and v: (bh, sk, d), o: (bh, sq, d), all bf16,
-// contiguous and 16-byte aligned; d % 8 == 0 and ceil16(d) in {48, 80, 512}
-// (the UNet's 40 and 80, the VAE's 512).
+// contiguous and 16-byte aligned; d % 8 == 0 and ceil16(d) in {48, 64, 80,
+// 512} (the UNet's 40 and 80, ModelScope's 64, the VAE's 512).
 INSV2V_EXPORT int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                                  int bh, int sq, int sk, int d, float scale, void* stream) {
   auto Q = static_cast<const bf16*>(q);
@@ -615,6 +616,7 @@ INSV2V_EXPORT int flash_attn_fwd(const void* q, const void* k, const void* v, vo
   if (d % 8 != 0 || sq <= 0 || sk <= 0) return cudaErrorInvalidValue;
   switch ((d + 15) / 16 * 16) {
     case 48: return launch_flash<48, false>(Q, K, V, O, 1, bh, sq, sk, d, scale, st);
+    case 64: return launch_flash<64, false>(Q, K, V, O, 1, bh, sq, sk, d, scale, st);
     case 80: return launch_flash<80, false>(Q, K, V, O, 1, bh, sq, sk, d, scale, st);
     case 512: return launch_wide(Q, K, V, O, bh, sq, sk, d, scale, st);
     default: return cudaErrorInvalidValue;
@@ -623,7 +625,7 @@ INSV2V_EXPORT int flash_attn_fwd(const void* q, const void* k, const void* v, vo
 
 // Kernel A' (headfold): q (b, heads, sq, d), k and v (b, heads, sk, d),
 // o like q; the same conditions as flash_attn_fwd, for the UNet's head dims
-// (ceil16(d) in {48, 80}). With one head the two grids are the same, so
+// (ceil16(d) in {48, 64, 80}). With one head the two grids are the same, so
 // the d = 512 VAE case goes to flash_attn_fwd.
 INSV2V_EXPORT int flash_attn_fwd_headfold(const void* q, const void* k, const void* v, void* o,
                                           int b, int heads, int sq, int sk, int d, float scale,
@@ -637,6 +639,7 @@ INSV2V_EXPORT int flash_attn_fwd_headfold(const void* q, const void* k, const vo
   if (d % 8 != 0 || sq <= 0 || sk <= 0 || heads <= 0) return cudaErrorInvalidValue;
   switch ((d + 15) / 16 * 16) {
     case 48: return launch_flash<48, true>(Q, K, V, O, b, heads, sq, sk, d, scale, st);
+    case 64: return launch_flash<64, true>(Q, K, V, O, b, heads, sq, sk, d, scale, st);
     case 80: return launch_flash<80, true>(Q, K, V, O, b, heads, sq, sk, d, scale, st);
     default: return cudaErrorInvalidValue;
   }
@@ -649,7 +652,7 @@ INSV2V_EXPORT int flash_attn_fwd_headfold(const void* q, const void* k, const vo
 INSV2V_EXPORT int flash_attn_grid(int b, int heads, int sq, int d, int headfold, int* out) {
   const int dp = (d + 15) / 16 * 16;
   if (d % 8 != 0 || sq <= 0 || b <= 0 || heads <= 0 ||
-      !(dp == 48 || dp == 80 || (dp == 512 && !headfold)))
+      !(dp == 48 || dp == 64 || dp == 80 || (dp == 512 && !headfold)))
     return cudaErrorInvalidValue;
   const Grid g = flash_grid(b, heads, sq, dp, headfold != 0, sm_count());
   out[0] = g.nwg;

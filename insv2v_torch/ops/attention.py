@@ -46,9 +46,10 @@ __all__ = ["attention", "flash_attention", "flash_attention_headfold",
 FLASH_MIN_SEQ = 256
 FLASH_MIN_KSEQ = 256
 # head dims rounded up to 16 that the kernels are compiled for: the UNet's
-# 40 and 80 and the VAE's 512 (A), the motion modules' 40, 80, 160 (C)
-_FLASH_HEAD_DIMS = (48, 80, 512)
-_FLASH_HEADFOLD_DIMS = (48, 80)
+# 40 and 80, ModelScope's 64 and the VAE's 512 (A), the motion modules' 40,
+# 80, 160 (C)
+_FLASH_HEAD_DIMS = (48, 64, 80, 512)
+_FLASH_HEADFOLD_DIMS = (48, 64, 80)
 # flash_attention's default kernel: A' (headfold) when on; the JAX
 # package's switch and default (INSV2V_FLASH_HEADFOLD, off)
 FLASH_HEADFOLD = os.environ.get("INSV2V_FLASH_HEADFOLD", "0") == "1"

@@ -133,12 +133,31 @@ def load_clip_model_state_dict(path: str) -> Dict[str, torch.Tensor]:
             if not k.endswith("position_ids") and k != "logit_scale"}
 
 
-def load_raft_state_dict(model: torch.nn.Module, source) -> None:
+def _mask_to_port_order(w: torch.Tensor) -> torch.Tensor:
+    """The convex-upsampling mask head's 576 output channels (dim 0) from
+    princeton-vl's order ``n*64 + u*8 + v`` to the port's
+    ``(u*8 + v)*9 + n`` (n the 3x3 neighbour, (u, v) the 8x8 sub-pixel)."""
+    return w.reshape((9, 64) + w.shape[1:]).transpose(0, 1).reshape(w.shape)
+
+
+def load_raft_state_dict(model: torch.nn.Module, source, mask_order: str = "reference") -> None:
     """Load a princeton-vl RAFT checkpoint (a path or a state dict) into the
     port's ``RAFT``: the ``module.`` prefix stripped, every model key but
-    the BatchNorms' ``num_batches_tracked`` required, no unknown key."""
+    the BatchNorms' ``num_batches_tracked`` required, no unknown key.
+
+    ``mask_order``: how the checkpoint's ``update_block.mask.2`` orders its
+    576 output channels. ``"reference"`` (the default) loads them as they
+    are, the order the JAX package's ``convex_upsample`` reads, so both
+    packages agree on one weight set; ``"princeton-vl"`` is the order of
+    princeton-vl's ``upsample_flow`` and of its released checkpoints
+    (``raft-things.pth``), permuted into the order the port reads."""
+    if mask_order not in ("reference", "princeton-vl"):
+        raise ValueError(f"mask_order {mask_order!r}: 'reference' or 'princeton-vl'")
     sd = load_torch_weights(source) if isinstance(source, str) else source
     sd = strip_prefixes(sd, ("_forward_module.", "module."))
+    if mask_order == "princeton-vl":
+        sd = {k: _mask_to_port_order(v) if k.startswith("update_block.mask.2.") else v
+              for k, v in sd.items()}
     missing, unexpected = model.load_state_dict(sd, strict=False)
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]
     if missing or unexpected:

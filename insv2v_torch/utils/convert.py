@@ -3,10 +3,11 @@
 packages (and the JAX package's own trees can be served by the port).
 
 ``torch_state_dict_from_flax(tree, kind)`` for ``kind`` in
-{"unet3d", "vae", "clip_text", "raft", "clip_model"} undoes
-``convert_unet3d_state_dict``, ``convert_vae_state_dict``,
-``convert_clip_text_state_dict``, ``convert_raft_state_dict`` and
-``convert_clip_model_state_dict``:
+{"unet3d", "vae", "clip_text", "raft", "clip_model", "unet_sd",
+"openclip_text"} undoes ``convert_unet3d_state_dict``,
+``convert_vae_state_dict``, ``convert_clip_text_state_dict``,
+``convert_raft_state_dict``, ``convert_clip_model_state_dict``,
+``convert_unet_sd_state_dict`` and ``convert_openclip_text_state_dict``:
 
   * conv ``kernel`` (kh, kw, I, O) -> ``weight`` (O, I, kh, kw)
   * dense ``kernel`` (I, O)        -> ``weight`` (O, I)
@@ -19,7 +20,16 @@ packages (and the JAX package's own trees can be served by the port).
     princeton-vl modules register that norm under both names);
   * the HF ``CLIPModel``: ``text`` -> ``text_model.*``, ``vision`` ->
     ``vision_model.*`` (``embeddings.{class,patch,position}_embedding``,
-    ``encoder.layers.N``), and the two bias-free projections.
+    ``encoder.layers.N``), and the two bias-free projections;
+  * ModelScope's UNetSD (``cfg``, its ``ModelScopeConfig``, is needed): the
+    named modules back to the reference's ``input_blocks.N.M`` /
+    ``middle_block.M`` / ``output_blocks.N.M`` numbering, walked in the
+    reference's construction order; the temporal convs' kernels (3, I, O)
+    -> Conv3d (O, I, 3, 1, 1), the temporal transformers' projections ->
+    Conv1d (O, I, 1); ``temporal_conv`` -> ``temopral_conv`` (sic);
+  * open_clip's text tower: q/k/v packed back into ``attn.in_proj_weight``
+    / ``in_proj_bias``, ``resblocks_N`` -> ``transformer.resblocks.N``,
+    ``c_fc`` / ``c_proj`` under ``mlp``.
 """
 
 from __future__ import annotations
@@ -161,10 +171,114 @@ _MODULE_RULES = {"unet3d": _unet_module, "vae": _vae_module, "clip_text": _clip_
                  "raft": _raft_module, "clip_model": _clip_model_module}
 
 
-def torch_state_dict_from_flax(params: Mapping[str, Any], kind: str) -> Dict[str, torch.Tensor]:
+def _unet_sd_index_map(cfg) -> Dict[str, str]:
+    """The reference's Sequential prefix (``input_blocks.N.M``, ...) of each
+    named UNetSD module, by walking the reference's construction order."""
+    m: Dict[str, str] = {
+        "input_blocks.0.0": "init_conv", "input_blocks.0.1": "init_temporal",
+        "middle_block.0": "mid_res_0", "middle_block.1": "mid_spatial",
+        "middle_block.2": "mid_temporal", "middle_block.3": "mid_res_1",
+        "out.0": "out_norm", "out.2": "out_conv",
+        "time_embed.0": "time_embed_1", "time_embed.2": "time_embed_2",
+    }
+    scale, idx, blk, levels = 1.0, 1, 0, len(cfg.dim_mult)
+    for i in range(levels):
+        for j in range(cfg.num_res_blocks):
+            m[f"input_blocks.{idx}.0"] = f"down_res_{blk}"
+            if scale in cfg.attn_scales:
+                m[f"input_blocks.{idx}.1"] = f"down_spatial_{blk}"
+                m[f"input_blocks.{idx}.2"] = f"down_temporal_{blk}"
+            idx, blk = idx + 1, blk + 1
+            if i != levels - 1 and j == cfg.num_res_blocks - 1:
+                m[f"input_blocks.{idx}"] = f"downsample_{i}"
+                idx, scale = idx + 1, scale / 2.0
+    blk = 0
+    for i in range(levels):
+        for j in range(cfg.num_res_blocks + 1):
+            base, pos = f"output_blocks.{blk}", 1
+            m[f"{base}.0"] = f"up_res_{blk}"
+            if scale in cfg.attn_scales:
+                m[f"{base}.1"] = f"up_spatial_{blk}"
+                m[f"{base}.2"] = f"up_temporal_{blk}"
+                pos = 3
+            if i != levels - 1 and j == cfg.num_res_blocks:
+                m[f"{base}.{pos}"] = f"upsample_{i}"
+                scale *= 2.0
+            blk += 1
+    return {v: k for k, v in m.items()}
+
+
+_UNET_SD_INNER = {"in_norm": "in_layers.0", "in_conv": "in_layers.2",
+                  "emb_proj": "emb_layers.1", "out_norm": "out_layers.0",
+                  "out_conv": "out_layers.3", "temporal_conv": "temopral_conv",
+                  "transformer_blocks_0": "transformer_blocks.0", "to_out": "to_out.0"}
+_TEMPORAL = re.compile(r"^(init_temporal|mid_temporal|(down|up)_temporal_\d+)$")
+
+
+def _unet_sd_state_dict(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    prefix = _unet_sd_index_map(cfg)
+    sd = {}
+    for path, v in flatten(params).items():
+        v = np.asarray(v, dtype=np.float32)
+        top, inner, leaf = path[0], list(path[1:-1]), path[-1]
+        out = [prefix[top]]
+        for i, p in enumerate(inner):
+            if inner[i - 1:i] == ["temporal_conv"] and p[:-1] in ("norm", "conv"):
+                n = p[-1]  # normN -> convN.0; convN -> convN.2 (N = 1) or convN.3
+                out.append(f"conv{n}.0" if p.startswith("norm") else
+                           f"conv{n}.{2 if n == '1' else 3}")
+            elif p == "geglu_proj":
+                out.append("net.0.proj")
+            elif p == "proj_out" and inner[i - 1:i] == ["ff"]:
+                out.append("net.2")
+            else:
+                out.append(_UNET_SD_INNER.get(p, p))
+        if leaf == "kernel" and v.ndim == 3:  # temporal conv (3, I, O)
+            name, v = "weight", np.transpose(v, (2, 1, 0))[..., None, None]
+        elif leaf == "kernel" and inner in (["proj_in"], ["proj_out"]) and _TEMPORAL.match(top):
+            name, v = "weight", np.transpose(v)[..., None]  # Conv1d k = 1
+        else:
+            name, v = _leaf(leaf, v)
+        sd[".".join(out + [name])] = torch.tensor(v)
+    return sd
+
+
+def _openclip_text_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    sd, qkv = {}, {}
+    for path, v in flatten(params).items():
+        v = np.asarray(v, dtype=np.float32)
+        if path == ("positional_embedding",):
+            sd["positional_embedding"] = torch.tensor(v)
+            continue
+        parts = list(path)
+        m = re.match(r"^resblocks_(\d+)$", parts[0])
+        if m:
+            parts[:1] = ["transformer", "resblocks", m.group(1)]
+        if parts[-2] in ("q_proj", "k_proj", "v_proj"):
+            base = ".".join(parts[:-2])
+            qkv.setdefault((base, parts[-1]), {})[parts[-2]] = v
+            continue
+        if parts[-2] in ("c_fc", "c_proj"):
+            parts[-2:-2] = ["mlp"]
+        name, v = _leaf(parts[-1], v)
+        sd[".".join(parts[:-1] + [name])] = torch.tensor(v)
+    for (base, leaf), d in qkv.items():
+        parts = [d[n] for n in ("q_proj", "k_proj", "v_proj")]
+        packed = np.concatenate([p.T for p in parts] if leaf == "kernel" else parts, axis=0)
+        sd[f"{base}.in_proj_{'weight' if leaf == 'kernel' else 'bias'}"] = torch.tensor(packed)
+    return sd
+
+
+def torch_state_dict_from_flax(params: Mapping[str, Any], kind: str,
+                               cfg=None) -> Dict[str, torch.Tensor]:
     """A numpy (or array-like) Flax param tree -> the port module's state
     dict, as float32 CPU tensors. Each rule renames the whole key path,
-    the (already renamed) leaf included."""
+    the (already renamed) leaf included. ``cfg``: the ``ModelScopeConfig``
+    of a ``"unet_sd"`` tree."""
+    if kind == "unet_sd":
+        return _unet_sd_state_dict(params, cfg)
+    if kind == "openclip_text":
+        return _openclip_text_state_dict(params)
     rule = _MODULE_RULES[kind]
     sd = {}
     for path, v in flatten(params).items():

@@ -437,3 +437,36 @@ def test_convex_upsample_mask_order_against_princeton_vl():
     permuted = mask.reshape(1, 3, 4, 64, 9).transpose(0, 1, 2, 4, 3).reshape(1, 3, 4, 576)
     np.testing.assert_allclose(got, oracle(permuted).numpy(), atol=1e-5)
     assert np.abs(got - oracle(mask).numpy()).max() > np.abs(got).max()
+
+
+@pytest.mark.parametrize("order", ["reference", "princeton-vl"])
+def test_load_raft_state_dict_mask_order(order):
+    """``load_raft_state_dict(mask_order=)``: a checkpoint whose mask head
+    gives princeton-vl's channel order, loaded with ``"princeton-vl"``,
+    upsamples as princeton-vl's ``upsample_flow`` (the oracle) does on that
+    checkpoint's own mask, to 1e-5; the default loads the weights as they
+    are (the order the JAX package reads) and then differs from it."""
+    from oracles.raft_oracle import OracleRAFT
+
+    cfg = traft.RaftConfig.tiny()
+    sd = seeded_raft(cfg).state_dict()
+    model = traft.RAFT(cfg).eval()
+    load_raft_state_dict(model, sd, mask_order=order)
+    as_is = traft.RAFT(cfg).eval()
+    load_raft_state_dict(as_is, sd)
+    for k, v in sd.items():
+        if order == "reference" or not k.startswith("update_block.mask.2."):
+            np.testing.assert_array_equal(model.state_dict()[k].numpy(), v.numpy(), err_msg=k)
+    rs = np.random.RandomState(8)
+    h = np_t(rs.randn(1, cfg.hidden_dim, 3, 4).astype(np.float32) * 2)
+    flow = np_t(rs.randn(1, 2, 3, 4).astype(np.float32))
+    nhwc = lambda t: t.permute(0, 2, 3, 1)
+    with torch.no_grad():
+        want = nhwc(OracleRAFT.upsample_flow(None, flow, as_is.update_block.upsample_mask(h)))
+        got = traft.convex_upsample(nhwc(flow), nhwc(model.update_block.upsample_mask(h)))
+    if order == "princeton-vl":
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+    else:
+        assert (got - want).abs().max() > 1e-2
+    with pytest.raises(ValueError, match="mask_order"):
+        load_raft_state_dict(model, sd, mask_order="unknown")

@@ -31,12 +31,15 @@ def _randn(gen, *shape, scale=1.0):
 
 @pytest.mark.parametrize("b,h,sq,sk,d", [(2, 8, 300, 300, 40), (2, 8, 384, 260, 80),
                                          (1, 2, 100, 700, 80), (1, 1, 260, 300, 512),
-                                         (2, 1, 1024, 1000, 512), (1, 1, 40, 300, 512)])
+                                         (2, 1, 1024, 1000, 512), (1, 1, 40, 300, 512),
+                                         (2, 5, 1000, 1000, 64), (4, 10, 256, 256, 64),
+                                         (1, 3, 300, 1024, 64)])
 def test_flash_kernel_matches_twin(cuda, b, h, sq, sk, d):
-    """Ragged lengths (not multiples of the 64-key tiles at d = 40/80 or the
-    32-key tiles at d = 512, nor of the 64, 128 or 192 query rows of a work
-    item), sq != sk; at d = 512 the training depth and fewer queries than
-    one query block."""
+    """Ragged lengths (not multiples of the 64-key tiles at d = 40/64/80 or
+    the 32-key tiles at d = 512, nor of the 64, 128 or 192 query rows of a
+    work item), sq != sk; at d = 512 the training depth and fewer queries
+    than one query block; at d = 64 (ModelScope) its two self-attention
+    levels, one of them ragged."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = _randn(g, b, h, sq, d), _randn(g, b, h, sk, d), _randn(g, b, h, sk, d)
     before = tattn.flash_attention.launches
@@ -49,7 +52,8 @@ def test_flash_kernel_matches_twin(cuda, b, h, sq, sk, d):
 
 @pytest.mark.parametrize("b,h,sq,sk,d", [(2, 8, 300, 300, 40), (2, 8, 384, 260, 80),
                                          (1, 3, 100, 700, 80), (3, 8, 256, 256, 80),
-                                         (2, 8, 1024, 1024, 40), (34, 2, 384, 300, 40)])
+                                         (2, 8, 1024, 1024, 40), (34, 2, 384, 300, 40),
+                                         (2, 10, 256, 256, 64), (40, 5, 1000, 1000, 64)])
 def test_flash_headfold_kernel_matches_twin(cuda, b, h, sq, sk, d):
     """Kernel A': ragged lengths, sq != sk, an odd head count, and training's
     shapes at a small batch: fewer blocks than SMs, several heads per
@@ -75,6 +79,8 @@ def test_flash_headfold_cases_cover_both_forms(cuda):
     where blocks are few, three on a shared ring otherwise."""
     assert tattn.flash_grid(3, 8, 256, 80, headfold=True)["warpgroups"] == 2
     assert tattn.flash_grid(34, 2, 384, 40, headfold=True)["warpgroups"] == 3
+    assert tattn.flash_grid(2, 10, 256, 64, headfold=True)["warpgroups"] == 2
+    assert tattn.flash_grid(40, 5, 1000, 64, headfold=True)["warpgroups"] == 3
 
 
 @pytest.mark.parametrize("rows,c", [(1000, 320), (77, 768), (40, 1280), (7, 640), (9, 72)])
@@ -190,6 +196,16 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     qb = torch.zeros(1, 1, 300, 36, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         tattn.flash_attention(qb, qb, qb)
+    # d = 64 in float32, d = 64 not contiguous, and d = 96 (not compiled)
+    q64 = torch.zeros(1, 2, 300, 64, device=cuda)
+    with pytest.raises(TypeError):
+        tattn.flash_attention(q64, q64, q64, headfold=True)
+    q64 = q64.bfloat16().transpose(1, 2)
+    with pytest.raises(ValueError):
+        tattn.flash_attention(q64, q64, q64)
+    q96 = torch.zeros(1, 2, 300, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        tattn.flash_attention(q96, q96, q96)
     t = torch.zeros(1, 2, 33, 2, 8, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         tattn.temporal_attention(t, t, t)
