@@ -6,10 +6,13 @@ float32 run, drives the full-width dual-CFG video edit through
 ``VideoEditor`` (plain and motion-compensated by RAFT), trains the motion
 modules at full width for a few steps, and runs the LOVEU-TGVE runner,
 its scorer and the edit CLI, and generates synthetic prompt-to-prompt
-pairs with the full-width ModelScope UNet.
+pairs with the full-width ModelScope UNet; then rehearses the multi-process
+paths with two ranks sharing the card over gloo (data-parallel training,
+frame- and batch-sharded windows) and times the native batch loader.
 
     python3 chip_smoke.py                # every phase, one GPU
     python3 chip_smoke.py --only env,build,parity,grad,train,variants,flow,loveu,datagen
+    python3 chip_smoke.py --only env,build,dp,sp,loader
 
 Phases: env, build, parity (kernels A, A', B, C, D against their twins,
 with times, bounds and the one-call PyTorch yardstick), unet (GPU bf16 vs
@@ -32,7 +35,22 @@ GIFs with a random ViT-L/14; ``edit_video`` with Farneback flow),
 datagen (the full-width ModelScope UNetSD, GPU bf16 vs CPU float32 with
 a plain, a (key, value) and an ``sa_share`` context; ``generate_dataset``
 at its defaults, v2 with the CLIP filter over random ViT-L/14 weights and
-v1 without it: seconds per pair and per UNetSD call, kernel A's launches).
+v1 without it: seconds per pair and per UNetSD call, kernel A's launches),
+loader (the three native batch ops at the training size against their
+numpy twins, then the train phase's step with batches assembled by the
+native crop op, with the prefetch loader on and off), dp (one microbatch
+with the models stored in float32 under bf16 autocast against
+bf16-stored ones; ``apps/train.py`` as two processes with
+``--frozen-f32``: rank 0 alone writes; then two ranks spawned on the card
+over gloo, the train phase's setup: one Adam and one Adam8bit step of the
+data-parallel trainer on a global batch of 4 against a one-process step
+on the same batch and draws, the optimizer state's bytes per rank), sp
+(two ranks, frames sharded: an edit-shaped 16-frame 256x384 window and a
+follow-up window against the unsharded ones, kernel C's launches by shape
+and the all-to-all bytes; one UNet call against the unsharded one; each
+again with a fault planted in the exchange, which must read above the
+gate; then a 2-video window sharded by videos). The dp and sp seconds are a
+rehearsal of two ranks on one card, not a scaling measurement.
 It prints the card and its power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``. Any failed phase
 exits non-zero with no result line. Weights are random from ``--seed``.
@@ -105,6 +123,18 @@ DATAGEN_PROMPT = {"input": "a cat walking on the grass", "output": "a dog walkin
 # relative L2 of RAFT's flow on the card (float32, cuDNN's default TF32
 # convolutions) against the CPU's float32 run on the same weights and pairs
 RAFT_TOL = 5e-2
+# the multi-process rehearsals: two ranks share the card over gloo; each
+# sharded window runs SP_STEPS DDIM steps; a two-rank result is held to
+# its one-process counterpart at SHARD_TOL relative L2 (the bf16 gate)
+RANKS, SP_STEPS, SHARD_TOL = 2, 4, 5e-2
+# relative L2 of one full-width UNet call, frames sharded over RANKS,
+# against the unsharded call on the card: twice the 1.21-1.25e-2 measured
+# on an NVIDIA H100 80GB HBM3 at 700 W (bf16 roundings of other batch
+# sizes). A GroupNorm whose statistics skip the other ranks' frames read
+# 0.160 there on latents that drift over the window, and must read above
+# it. The windows' SHARD_TOL cannot see that fault (2.84e-2 against a
+# clean 2.69e-2: CFG 7.5 over 4 steps amplifies the bf16 noise)
+SP_CALL_TOL = 2.5e-2
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "instruct_v2v.yaml")
 # a video of the packaged edit-instruction dict, so the runner's default
@@ -1082,10 +1112,646 @@ def phase_profile(models, gen):
     _profile_call(lambda: unet(x, t, ctx, video_start_index=0), "profile", "one UNet call")
 
 
+# --- the native loader ---------------------------------------------------------
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median host milliseconds of ``reps`` calls (after one warm call)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _crops(rs, n, size, share=0.8):
+    """Translation crops of ``share`` of the frame, inside it."""
+    import numpy as np
+
+    c = np.full(n, int(size * share), np.int32)
+    centre = (c / 2 + rs.rand(2, n) * (size - c)).astype(np.float32)
+    return centre[0], centre[1], c, c.copy()
+
+
+def phase_loader(models, args):
+    """The three native batch ops at the training size (16 frames of
+    256x256 uint8; the resize from 512x512) against their numpy twins,
+    with host ms; then the train phase's step (micro-batch 1, accumulation
+    2, remat, A' on) fed by batches that the native crop op assembles from
+    uint8 videos, pinned and copied without blocking, with the prefetch
+    loader off and on: seconds per microbatch and the device's idle share
+    (reported, no limit)."""
+    import dataclasses
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from insv2v_torch.data import native_loader as nl
+    from insv2v_torch.text.tokenizer import HashTokenizer
+    from insv2v_torch.training.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    nl.load()
+    log(f"loader: native library {nl.library_path().name} ready in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rs = np.random.RandomState(args.seed)
+    f, size = TRAIN_FRAMES, TRAIN_SIZE
+    u8 = rs.randint(0, 256, (f, size, size, 3), dtype=np.uint8)
+    big = rs.randint(0, 256, (f, 2 * size, 2 * size, 3), dtype=np.uint8)
+    crop = _crops(rs, f, size)
+    ops = (("normalize_frames", lambda native: nl.normalize_frames(u8, native=native)),
+           ("resize_normalize 512->256",
+            lambda native: nl.resize_normalize(big, size, size, native=native)),
+           ("crop_resize_normalize", lambda native: nl.crop_resize_normalize(
+               u8, *crop, native=native)))
+    for name, op in ops:
+        err = float(np.abs(op(True) - op(False)).max())
+        log(f"loader: {name} ({f}, {size}, {size}, 3) uint8: max |native - twin| {err:.3e} "
+            f"(tol 1e-5), native {_host_ms(lambda: op(True)):.2f} ms, numpy twin "
+            f"{_host_ms(lambda: op(False)):.2f} ms ({os.cpu_count()} host cores)")
+        if not err <= 1e-5:
+            raise AssertionError(f"native {name} disagrees with its twin: {err}")
+
+    unet, vae, text = models["unet"], models["vae"], models["text_model"]
+    unet.cfg = dataclasses.replace(unet.cfg, remat=True)
+    ids = np.asarray(HashTokenizer()(["make it snowy", "turn the dog into a cat"]))
+    vid_rs = np.random.RandomState(args.seed + 1)
+
+    def make_batch():
+        vids = vid_rs.randint(0, 256, (TRAIN_ACCUM * 2 * f, size, size, 3), dtype=np.uint8)
+        x = nl.crop_resize_normalize(vids, *_crops(vid_rs, len(vids), size))
+        x = torch.from_numpy(x.reshape(TRAIN_ACCUM, 2, f, size, size, 3))
+        return {"input_video": x[:, 0].pin_memory(), "edited_video": x[:, 1].pin_memory(),
+                "prompt_ids": torch.from_numpy(ids)}
+
+    log(f"loader: one step's batch assembled on the host in {_host_ms(make_batch, 3):.1f} ms "
+        f"(2 x {TRAIN_ACCUM} videos of {f} uint8 frames, crop + normalize, pinned)")
+    trainer = Trainer(unet, vae, text, TrainConfig(lr=1e-5, accumulate_grad_batches=TRAIN_ACCUM))
+    state = trainer.create_state()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    def step(get, profiled=False):
+        ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+               if profiled else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx as prof:
+            host = get()
+            batch = {k: v.to("cuda", non_blocking=True) for k, v in host.items()}
+            trainer.train_step(state, batch, gen)
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0, prof
+
+    with _switches(True, False):
+        step(make_batch)  # warm-up
+        for prefetch in (False, True):
+            loader = nl.PrefetchLoader(make_batch, depth=2) if prefetch else None
+            get = (lambda: next(loader)) if prefetch else make_batch
+            try:
+                if prefetch:
+                    step(get)  # fills the queue: the first batch is not overlapped
+                walls = [step(get)[0] for _ in range(5)]
+                wall_p, prof = step(get, profiled=True)
+            finally:
+                if loader is not None:
+                    loader.close()
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA) / 1e6
+            median = sorted(walls)[len(walls) // 2]  # the host is shared: steps spread
+            log(f"loader: training step with the prefetch loader {'on' if prefetch else 'off'}: "
+                f"{median / TRAIN_ACCUM:.4f} s per microbatch (median of 5 steps: "
+                + ", ".join(f"{w:.3f}" for w in walls) + f" s); profiled step {wall_p:.3f} s "
+                f"wall, device busy {busy:.3f} s (idle share {max(0.0, 1 - busy / wall_p):.3f} "
+                f"with the profiler's host cost, {max(0.0, 1 - busy / median):.3f} of the "
+                f"median step)")
+    unet.cfg = dataclasses.replace(unet.cfg, remat=False)
+    del trainer, state
+
+
+# --- two ranks on the card: data-parallel training and sharded windows ---------
+
+def _rank_models(seed):
+    from insv2v_torch.utils.factory import build_models
+
+    models = build_models(device="cuda", dtype=torch.bfloat16, seed=seed)
+    _wake_motion_modules(models["unet"], torch.Generator().manual_seed(seed))
+    return models
+
+
+def _launch_counts():
+    return {name: f.launches for name, f in _kernel_fns().items()}
+
+
+def _train_rows(seed, n):
+    """A global batch of n rows (16 frames at 256x256 in [-1, 1], prompt
+    ids) and each row's five draws, the same on every rank."""
+    import numpy as np
+
+    from insv2v_torch.text.tokenizer import HashTokenizer
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (n, TRAIN_FRAMES, TRAIN_SIZE, TRAIN_SIZE, 3)
+    prompts = ["make it snowy", "turn the dog into a cat"]
+    batch = {"input_video": torch.rand(shape, generator=g, device="cuda") * 2 - 1,
+             "edited_video": torch.rand(shape, generator=g, device="cuda") * 2 - 1,
+             "prompt_ids": np.asarray(HashTokenizer()([prompts[i % 2] for i in range(n)]))}
+    lat = (TRAIN_FRAMES, TRAIN_SIZE // 8, TRAIN_SIZE // 8, 4)
+    rows = [{"enc_cond": torch.randn(lat, generator=g, device="cuda"),
+             "enc_edit": torch.randn(lat, generator=g, device="cuda"),
+             "drop": torch.rand(1, generator=g, device="cuda") < 0.1,
+             "eps": torch.randn((1,) + lat, generator=g, device="cuda"),
+             "t": torch.randint(0, 1000, (1,), generator=g, device="cuda")} for _ in range(n)]
+    return batch, rows
+
+
+def _train_steps(models, group, steps):
+    """One Adam and one Adam8bit step (each a fresh trainer over the
+    model's motion parameters) on the global batches of ``steps``: with a
+    group, each rank's share (accumulation 2 of micro-batch 1); without,
+    the whole batch as one microbatch a row. Loss, seconds, launches and
+    the update (new - old masters, flat) of each."""
+    from insv2v_torch.parallel.dist import (assert_zero_sharded, local_batch_slice,
+                                            same_on_all_ranks)
+    from insv2v_torch.training.trainer import TrainConfig, Trainer
+
+    out = []
+    for kind, (batch, rows) in zip(("adam", "adam8bit"), steps):
+        n = len(rows)
+        if group is None:
+            accum, local, draws = n, batch, rows
+        else:
+            r, size = group.rank, group.size
+            accum = TRAIN_ACCUM
+            local = local_batch_slice(batch, accum, r, size)
+            draws = [rows[i * size + r] for i in range(accum)]
+        trainer = Trainer(models["unet"], models["vae"], models["text_model"],
+                          TrainConfig(lr=1e-5, optimizer=kind, accumulate_grad_batches=accum),
+                          group=group)
+        state = trainer.create_state()
+        before = torch.cat([m.reshape(-1) for m in state.params.values()])
+        _zero_launches()
+        if group is not None:  # the ranks start the timed step together
+            group.all_reduce_sum(torch.zeros(1, device="cuda"))
+            sent = dict(group.sent)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, local, draws=draws)
+        torch.cuda.synchronize()
+        entry = {"kind": kind, "loss": metrics["train_loss"],
+                 "seconds": time.perf_counter() - t0, "launches": _launch_counts(),
+                 "update": torch.cat([m.reshape(-1) for m in state.params.values()]) - before}
+        if group is not None:
+            entry["bytes"], entry["whole"] = assert_zero_sharded(state.optimizer, group)
+            entry["ranks_agree"] = same_on_all_ranks(list(state.params.values()), group)
+            entry["sent"] = {k: v - sent.get(k, 0) for k, v in group.sent.items()}
+            # the optimizer broadcasts the masters this rank owns
+            entry["sent"]["broadcast"] = sum(p.numel() * p.element_size() for g in
+                                             state.optimizer.optim.param_groups
+                                             for p in g["params"])
+        out.append(entry)
+        del trainer, state, before
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_rank(group, models, seed):
+    """The data-parallel Adam and Adam8bit steps on a global batch of
+    group.size * TRAIN_ACCUM rows; rank 0 then restores the motion parameters
+    and runs the one-process steps on the same batches and draws, and
+    holds the losses and updates to them. Every rank ends with the motion
+    parameters it started from."""
+    import dataclasses
+
+    unet = models["unet"]
+    unet.cfg = dataclasses.replace(unet.cfg, remat=True)
+    n = group.size * TRAIN_ACCUM
+    steps = [_train_rows(seed + 10 + k, n) for k in range(2)]
+    params = dict(unet.named_parameters())
+    start = {k: p.detach().clone() for k, p in params.items() if "motion_modules." in k}
+
+    def restore():
+        with torch.no_grad():
+            for k, v in start.items():
+                params[k].copy_(v)
+
+    with _switches(True, False):
+        dp = _train_steps(models, group, steps)
+        restore()
+        ref = _train_steps(models, None, steps) if group.rank == 0 else None
+        restore()
+    unet.cfg = dataclasses.replace(unet.cfg, remat=False)
+    res = []
+    for i, d in enumerate(dp):
+        row = {k: v for k, v in d.items() if k != "update"}
+        if ref is not None:
+            u, w = d["update"], ref[i]["update"]
+            row.update(ref_loss=ref[i]["loss"], ref_seconds=ref[i]["seconds"],
+                       update_rel=((u - w).norm() / w.norm()).item(),
+                       loss_rel=abs(d["loss"] - ref[i]["loss"]) / abs(ref[i]["loss"]))
+        res.append(row)
+    return res
+
+
+@contextlib.contextmanager
+def _temporal_shapes():
+    """Kernel C's launches by (B, P, F, heads, e) inside the block."""
+    import collections
+
+    from insv2v_torch.ops import attention
+
+    seen = collections.Counter()
+    launch = attention._launch_temporal
+
+    def counted(q, k, v, scale):
+        seen[tuple(q.shape)] += 1
+        return launch(q, k, v, scale)
+
+    attention._launch_temporal = counted
+    try:
+        yield seen
+    finally:
+        attention._launch_temporal = launch
+
+
+@contextlib.contextmanager
+def _planted(fault, group):
+    """A fault planted in this rank's process for the block, to show that a
+    gate catches it: ``group_norm`` keeps each across-frame GroupNorm's
+    statistics to this rank's frames (the moments' all-reduce dropped);
+    ``ref_delta`` keeps the sampler's sum of the ref frames' deltas to this
+    rank's frames (its all-reduce dropped)."""
+    from insv2v_torch.ops import norms
+
+    if fault == "group_norm":
+        def local_moments(xg, axes, _group):
+            var, mean = torch.var_mean(xg.float(), dim=axes, unbiased=False, keepdim=True)
+            return mean, var
+
+        saved = norms._moments_over_ranks
+        norms._moments_over_ranks = local_moments
+        try:
+            yield
+        finally:
+            norms._moments_over_ranks = saved
+    else:  # the ref-delta sum is the one (B, 1, h, w, C) all-reduce
+        reduce = group.all_reduce_sum
+        group.all_reduce_sum = lambda t: t if t.ndim == 5 else reduce(t)
+        try:
+            yield
+        finally:
+            del group.all_reduce_sum
+
+
+def _sp_calls(group, unet, g, rel):
+    """One full-width UNet call on the edit's 16-frame 256x384 latents,
+    frames sharded against unsharded, then the same sharded call with the
+    GroupNorm fault planted; on i.i.d. latents, and on latents whose mean
+    and spread drift over the frames as a video's do (a frame's latents
+    shifted by -0.5 to 0.5 and scaled by 0.75 to 1.25 across the window)."""
+    from insv2v_torch.parallel.dist import frame_parallel, shard_range
+
+    f, h, w = 16, EDIT_HEIGHT // 8, EDIT_WIDTH // 8
+    ramp = torch.linspace(0, 1, f, device="cuda").reshape(1, f, 1, 1, 1)
+    base = torch.randn(1, f, h, w, 8, generator=g, device="cuda")
+    ctx = torch.randn(1, 77, 768, generator=g, device="cuda")
+    t = torch.tensor([500], device="cuda")
+    frames = shard_range(f, group.rank, group.size)
+    res = {}
+    for name, x in (("iid", base), ("drift", base * (0.75 + 0.5 * ramp) + ramp - 0.5)):
+        want = unet(x, t, ctx)
+
+        def sharded():
+            with frame_parallel(group):
+                return group.all_gather_dim(unet(x[:, frames], t, ctx), 1)
+
+        got = sharded()
+        with _planted("group_norm", group):
+            faulty = sharded()
+        res[name] = {"rel": rel(got, want), "fault_rel": rel(faulty, want),
+                     "finite": bool(torch.isfinite(got).all())}
+    return res
+
+
+def _sp_rank(group, models, seed):
+    """Frames sharded: the edit's 16-frame 256x384 window (DDIM SP_STEPS,
+    text CFG 7.5, video CFG 1.2) and a follow-up window (4 refs,
+    noise_correct_step 0.5) against the unsharded windows on the same
+    inputs, each again with a fault planted (``_planted``: the first window
+    with the GroupNorm fault, the follow-up with the ref-delta one); one
+    UNet call sharded against unsharded, and with the GroupNorm fault
+    (``_sp_calls``); then one video a rank, sharded by videos, against the
+    unsharded batch.
+    Relative L2 of the latents, seconds, C's launches by shape and the
+    all-to-all bytes this rank sent."""
+    from insv2v_torch.diffusion.samplers import sample_video_window
+    from insv2v_torch.diffusion.schedules import DiffusionSchedule, make_sampler_tables
+    from insv2v_torch.parallel.inference import batch_sharded_window, frame_sharded_window
+
+    unet = models["unet"]
+    tables = make_sampler_tables(DiffusionSchedule.create(), SP_STEPS, kind="ddim")
+    g = torch.Generator(device="cuda").manual_seed(seed + 30)
+    h, w = EDIT_HEIGHT // 8, EDIT_WIDTH // 8
+
+    def window_inputs(b):
+        lat = torch.randn(b, 16, h, w, 4, generator=g, device="cuda")
+        cond = torch.randn(b, 16, h, w, 4, generator=g, device="cuda") * 0.5
+        tc = torch.randn(b, 77, 768, generator=g, device="cuda")
+        tu = torch.randn(b, 77, 768, generator=g, device="cuda")
+        return lat, cond, tc, tu
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()["latent"]
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+    kw = dict(text_cfg=7.5, img_cfg=1.2)
+    res = {}
+    group.all_reduce_sum(torch.zeros(1, device="cuda"))  # both ranks here before any timing
+    with torch.no_grad():
+        lat, cond, tc, tu = window_inputs(1)
+        first, _ = timed(lambda: sample_video_window(unet, tables, lat, cond, tc, tu, **kw))
+        windows = (("first", {}),
+                   ("follow-up", dict(latent_ref=first, num_ref_frames=4,
+                                      noise_correct_step=0.5, video_start_index=12)))
+        for name, extra in windows:
+            want, plain_s = timed(lambda: sample_video_window(unet, tables, lat, cond, tc, tu,
+                                                              **kw, **extra))
+            sent = group.sent["all_to_all"]
+            _zero_launches()
+            with _temporal_shapes() as shapes:
+                got, sharded_s = timed(lambda: frame_sharded_window(
+                    unet, tables, lat, cond, tc, tu, group, **kw, **extra))
+            res[name] = {"rel": rel(got, want), "finite": bool(torch.isfinite(got).all()),
+                         "sharded_s": sharded_s, "unsharded_s": plain_s,
+                         "launches": _launch_counts(),
+                         "c_shapes": {str(k): v for k, v in sorted(shapes.items())},
+                         "all_to_all_bytes": group.sent["all_to_all"] - sent}
+            fault = "group_norm" if name == "first" else "ref_delta"
+            with _planted(fault, group):
+                faulty = frame_sharded_window(unet, tables, lat, cond, tc, tu, group, **kw,
+                                              **extra)["latent"]
+            res[name].update(fault=fault, fault_rel=rel(faulty, want))
+        res["call"] = _sp_calls(group, unet, g, rel)
+        lat, cond, tc, tu = window_inputs(group.size)  # one video a rank
+        want, plain_s = timed(lambda: sample_video_window(unet, tables, lat, cond, tc, tu, **kw))
+        got, sharded_s = timed(lambda: batch_sharded_window(unet, tables, lat, cond, tc, tu,
+                                                            group, **kw))
+        res["batch"] = {"rel": rel(got, want), "finite": bool(torch.isfinite(got).all()),
+                        "sharded_s": sharded_s, "unsharded_s": plain_s}
+    return res
+
+
+def _rank_main(group, todo, seed):
+    """One rank of the dp and sp phases: the full-width models from the
+    seed (the same on every rank, checked), then the phases asked for."""
+    from insv2v_torch.parallel.dist import same_on_all_ranks
+
+    models = _rank_models(seed)
+    if not same_on_all_ranks([p for m in models.values() for p in m.parameters()], group):
+        raise AssertionError("the ranks built different weights from one seed")
+    out = {"transport": group.describe()}
+    if "dp" in todo:
+        out["dp"] = _dp_rank(group, models, seed)
+    if "sp" in todo:
+        out["sp"] = _sp_rank(group, models, seed)
+    return out
+
+
+def phase_ranks(args, todo, smi):
+    """dp and/or sp: RANKS processes spawned on the card, joined over gloo."""
+    from insv2v_torch.parallel.dist import spawn
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(_rank_main, RANKS, todo, args.seed, timeout_s=900)
+    log(f"ranks: {RANKS} processes on {smi}, {time.perf_counter() - t0:.1f} s in all "
+        f"(a rehearsal of two ranks sharing one card: no scaling result)")
+    return report_ranks(ranks, todo)
+
+
+def report_ranks(ranks, todo):
+    """Log the ranks' dp and sp results and hold them to their gates;
+    returns the launches of each path (rank 0's)."""
+    log(ranks[0]["transport"])
+    paths = {}
+    if "dp" in todo:
+        for i, steps in enumerate(zip(*(r["dp"] for r in ranks))):
+            head = steps[0]
+            for r, st in enumerate(steps):
+                log(f"dp rank {r} {st['kind']}: loss {st['loss']:.6f}, {st['seconds']:.3f} s "
+                    f"({st['seconds'] / TRAIN_ACCUM:.3f} s per microbatch), optimizer state "
+                    f"{st['bytes'][r] / 2 ** 30:.3f} GiB of an unsharded "
+                    f"{st['whole'] / 2 ** 30:.3f} GiB (assert_zero_sharded passed), ranks "
+                    f"agree {st['ranks_agree']}; sent in the step: "
+                    + ", ".join(f"{k} {v / 2 ** 30:.3f} GiB" for k, v in st["sent"].items())
+                    + f"; launches A {st['launches']['flash_attention']}, "
+                    f"A' {st['launches']['flash_attention_headfold']}, "
+                    f"B {st['launches']['fused_geglu_ff']}, "
+                    f"C {st['launches']['temporal_attention']}")
+            log(f"dp {head['kind']}: {RANKS} ranks vs one process on the global batch of "
+                f"{RANKS * TRAIN_ACCUM}: loss {head['loss']:.6f} vs {head['ref_loss']:.6f} "
+                f"(rel {head['loss_rel']:.3e}), update rel L2 {head['update_rel']:.3e} "
+                f"(tol {SHARD_TOL:g}); one process {head['ref_seconds']:.3f} s for "
+                f"{RANKS * TRAIN_ACCUM} microbatches")
+            if not (all(st["ranks_agree"] for st in steps) and head["update_rel"] <= SHARD_TOL
+                    and head["loss_rel"] <= SHARD_TOL and math.isfinite(head["loss"])):
+                raise AssertionError(f"dp {head['kind']}: two ranks disagree with one process")
+        paths["dp"] = ranks[0]["dp"][0]["launches"]
+        _read_from("dp", paths["dp"], ("flash_attention", "flash_attention_headfold",
+                                       "fused_geglu_ff", "temporal_attention"))
+    if "sp" in todo:
+        for r, out in enumerate(ranks):
+            for name in ("first", "follow-up"):
+                w = out["sp"][name]
+                log(f"sp rank {r} {name} window (16 frames at {EDIT_HEIGHT}x{EDIT_WIDTH}, "
+                    f"DDIM {SP_STEPS}, {16 // RANKS} frames a rank): rel L2 vs unsharded "
+                    f"{w['rel']:.3e} "
+                    f"(tol {SHARD_TOL:g}); {w['sharded_s']:.3f} s sharded, "
+                    f"{w['unsharded_s']:.3f} s unsharded; all-to-all sent "
+                    f"{w['all_to_all_bytes'] / 2 ** 20:.1f} MiB; kernel C launches by shape "
+                    f"{w['c_shapes']}; launches {w['launches']}")
+                log(f"sp rank {r} {name} window with the {w['fault']} fault planted: rel L2 "
+                    f"vs unsharded {w['fault_rel']:.3e} (tol {SHARD_TOL:g})")
+            b = out["sp"]["batch"]
+            log(f"sp rank {r} batch-sharded window ({RANKS} videos, 1 a rank): rel L2 vs "
+                f"unsharded {b['rel']:.3e}; {b['sharded_s']:.3f} s sharded, "
+                f"{b['unsharded_s']:.3f} s unsharded")
+            for w in (out["sp"]["first"], out["sp"]["follow-up"], b):
+                if not (w["finite"] and w["rel"] <= SHARD_TOL):
+                    raise AssertionError(f"sp rank {r}: a sharded window disagrees: {w['rel']}")
+            for name, c in out["sp"]["call"].items():
+                log(f"sp rank {r} one UNet call ({name} latents, 16 frames at "
+                    f"{EDIT_HEIGHT}x{EDIT_WIDTH}, {16 // RANKS} frames a rank): rel L2 vs "
+                    f"unsharded {c['rel']:.3e} (tol {SP_CALL_TOL:g}); with the group_norm "
+                    f"fault planted {c['fault_rel']:.3e}")
+                if not (c["finite"] and c["rel"] <= SP_CALL_TOL):
+                    raise AssertionError(f"sp rank {r}: the sharded UNet call disagrees: "
+                                         f"{c['rel']}")
+            if not out["sp"]["call"]["drift"]["fault_rel"] > SP_CALL_TOL:
+                raise AssertionError(f"sp rank {r}: the planted GroupNorm fault passed the "
+                                     f"gate: {out['sp']['call']['drift']['fault_rel']}")
+        paths["sp"] = ranks[0]["sp"]["first"]["launches"]
+        _read_from("sp", paths["sp"], ("flash_attention", "fused_geglu_ff",
+                                       "temporal_attention"))
+    return paths
+
+
+def _read_from(path, counts, must):
+    missing = [k for k in must if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {path} path: {missing}")
+
+
+def _write_ptp(root, n_samples=2):
+    """Prompt-to-prompt sample folders: 16 frame pairs at 256x256 (JPEG)."""
+    import cv2
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    for s in range(n_samples):
+        d = os.path.join(root, f"sample_{s:03d}", "image")
+        os.makedirs(d)
+        for which in (0, 1):
+            for i in range(TRAIN_FRAMES):
+                img = (rs.rand(TRAIN_SIZE, TRAIN_SIZE, 3) * 255).astype(np.uint8)
+                cv2.imwrite(os.path.join(d, f"1_{which}_{i:04d}.jpg"), img)
+        with open(os.path.join(root, f"sample_{s:03d}", "metadata.jsonl"), "w") as f:
+            f.write(json.dumps({"seed": 1, "sim_0": 0.5, "sim_1": 0.5, "sim_dir": 0.5,
+                                "sim_image": 0.9}) + "\n")
+        with open(os.path.join(root, f"sample_{s:03d}", "prompt.json"), "w") as f:
+            json.dump({"input": "a cat", "output": "a dog", "edit": "make it a dog"}, f)
+
+
+def phase_frozen_f32(args):
+    """The train CLI's ``--frozen-f32`` arithmetic against bf16-stored
+    models: one microbatch (16 frames at 256x256, kernel A' and remat on)
+    through the trainer with the models stored in float32 and computed
+    under bf16 autocast, and with the same weights stored in bf16. The loss
+    and the motion gradients are held to each other at GRAD_TOL relative
+    L2 (the bf16 gate); the autocast run must launch A', B and C."""
+    import copy
+    import dataclasses
+
+    from insv2v_torch.training.trainer import TrainConfig, Trainer
+    from insv2v_torch.utils.factory import build_models
+
+    f32 = build_models(device="cuda", dtype=torch.float32, seed=args.seed)
+    _wake_motion_modules(f32["unet"], torch.Generator().manual_seed(args.seed))
+    bf16 = {k: copy.deepcopy(m).to(torch.bfloat16) for k, m in f32.items()}
+    batch, rows = _train_rows(args.seed + 40, 1)
+    out = {}
+    with _switches(True, False):
+        for name, models, dtype in (("f32", f32, "bfloat16"), ("bf16", bf16, None)):
+            unet = models["unet"]
+            unet.cfg = dataclasses.replace(unet.cfg, remat=True)
+            trainer = Trainer(unet, models["vae"], models["text_model"],
+                              TrainConfig(compute_dtype=dtype))
+            state = trainer.create_state()
+            _zero_launches()
+            t0 = time.perf_counter()
+            loss, grads = trainer.accumulate_grads(state, batch, draws=rows)
+            torch.cuda.synchronize()
+            out[name] = {"loss": float(loss), "seconds": time.perf_counter() - t0,
+                         "grad": torch.cat([g.reshape(-1) for g in grads]),
+                         "launches": _launch_counts()}
+            del trainer, state, grads
+    del f32, bf16
+    a, b = out["f32"], out["bf16"]
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    grad_rel = ((a["grad"] - b["grad"]).norm() / b["grad"].norm()).item()
+    log(f"frozen-f32: one microbatch (16 frames at {TRAIN_SIZE}x{TRAIN_SIZE}) with the models "
+        f"stored in float32 under bf16 autocast vs stored in bf16: loss {a['loss']:.6f} vs "
+        f"{b['loss']:.6f} (rel {loss_rel:.3e}), motion gradients rel L2 {grad_rel:.3e} (tol "
+        f"{GRAD_TOL:g}); {a['seconds']:.3f} / {b['seconds']:.3f} s (first call of each); "
+        f"launches under autocast {a['launches']}")
+    del out
+    torch.cuda.empty_cache()
+    if not (math.isfinite(a["loss"]) and loss_rel <= GRAD_TOL and grad_rel <= GRAD_TOL):
+        raise AssertionError("the float32-stored models under autocast disagree with the "
+                             "bf16-stored ones")
+    _read_from("frozen-f32", a["launches"], ("flash_attention_headfold", "fused_geglu_ff",
+                                              "temporal_attention"))
+
+
+def phase_dp_cli(args):
+    """``apps/train.py`` as two processes on the card (``--coordinator``,
+    gloo, ``--frozen-f32``, the prefetch loader), 2 steps of accumulation
+    2 on a generated data folder: one metrics.jsonl and one checkpoint,
+    both from rank 0, the checkpoint's optimizer state whole; the ranks'
+    motion masters equal (the CLI checks and rank 0 says so)."""
+    import socket
+    import tempfile
+
+    import yaml
+
+    from insv2v_torch.utils.config import load_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_ptp(os.path.join(tmp, "ptp"))
+        cfg = load_config(CONFIG)
+        cfg["expt_dir"], cfg["expt_name"] = os.path.join(tmp, "experiments"), "dp"
+        cfg["trainer"].update(accumulate_grad_batches=TRAIN_ACCUM, micro_batch_size=1,
+                              val_every=0, checkpoint_every=1000)
+        cfg["data"]["train"]["params"]["root_dirs"] = [os.path.join(tmp, "ptp")]
+        cfg_path = os.path.join(tmp, "dp.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "insv2v_torch.apps.train", "--config", cfg_path,
+             "--allow-random-weights", "--max-steps", "2", "--frozen-f32", "--seed",
+             str(args.seed), "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+             str(RANKS), "--process-id", str(r)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            lines = [ln for ln in out.splitlines() if "socket.cpp" not in ln]
+            log(f"dp cli rank {r} (rc {p.returncode}):\n  " + "\n  ".join(lines[-12:]))
+            if p.returncode != 0:
+                raise AssertionError(f"train CLI rank {r} failed with rc {p.returncode}")
+        expt = os.path.join(tmp, "experiments", "dp")
+        files = sorted(os.listdir(expt))
+        records = [json.loads(ln) for ln in open(os.path.join(expt, "metrics.jsonl"))]
+        saved = torch.load(os.path.join(expt, "step_00000002.pt"), map_location="cpu",
+                           weights_only=True, mmap=True)
+        n = len(saved["params"])
+        whole = sorted(saved["optimizer"]["state"]) == list(range(n))
+        log(f"dp cli: {RANKS} ranks, 2 steps, --frozen-f32: {wall:.1f} s wall; files {files}; "
+            f"metrics steps {[rec['step'] for rec in records]}, losses "
+            f"{[round(rec['train_loss'], 6) for rec in records]}; checkpoint of {n} masters "
+            f"with the whole optimizer state: {whole}")
+        ok = (files == ["metrics.jsonl", "step_00000002.pt"]
+              and [rec["step"] for rec in records] == [1, 2]
+              and all(math.isfinite(rec["train_loss"]) for rec in records) and whole
+              and f"motion masters equal on {RANKS} ranks" in outs[0]
+              and "checkpointed" in outs[0]
+              and not any("checkpointed" in out or "step 1:" in out for out in outs[1:]))
+        if not ok:
+            raise AssertionError("the two-process train CLI did not write from rank 0 alone")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default="env,build,parity,unet,edit,flow,profile,variants,grad,"
-                                      "train,loveu,datagen")
+                                      "train,loader,loveu,datagen,dp,sp")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -1112,7 +1778,7 @@ def main():
         phase_build()
     if "parity" in phases:
         entries = phase_parity(gen)
-    if {"unet", "edit", "flow", "profile", "variants", "grad", "train"} & set(phases):
+    if {"unet", "edit", "flow", "profile", "variants", "grad", "train", "loader"} & set(phases):
         from insv2v_torch.utils.factory import build_models
 
         t0 = time.perf_counter()
@@ -1134,13 +1800,21 @@ def main():
             paths["variants"] = phase_variants(models, cpu_gen)
         if "grad" in phases:
             phase_grad(models, cpu_gen)
-        if "train" in phases:  # last of these: it trains the motion weights
+        if "train" in phases:  # it and the loader train the motion weights
             paths["train"] = phase_train(models, args, gen)
+        if "loader" in phases:
+            phase_loader(models, args)
         del models
     if "loveu" in phases:  # the runner builds its own models
         paths["loveu"] = phase_loveu(cpu_gen)
     if "datagen" in phases:  # the generator builds its own models
         paths["datagen"] = phase_datagen(args, cpu_gen)
+    if "dp" in phases:  # one process, then the train CLI as two
+        phase_frozen_f32(args)
+        phase_dp_cli(args)
+    ranked = [p for p in ("dp", "sp") if p in phases]
+    if ranked:  # spawned ranks build their own models
+        paths.update(phase_ranks(args, ranked, smi))
     # each kernel's launches on the path it belongs to: A, B, C the edit's
     # (their first slice), A' training's, D the variant edit window's
     home = {"flash_attention": "edit", "fused_geglu_ff": "edit", "temporal_attention": "edit",

@@ -12,6 +12,13 @@ The JAX ``lax.scan`` is a Python loop here. Video latents are
 Randomness: the per-step sampler noise comes from a callable
 ``step_noise(i, shape)`` (see ``VideoEditor``'s noise seam), drawn only on
 steps whose variance is non-zero.
+
+Frame-sharded (inside ``parallel.dist.frame_parallel(group)``): the
+window's latents hold this rank's frames, the ref mask uses the global
+frame index, the ref deltas' mean is all-reduced (or, with flows, the ref
+frames' deltas gathered), ``flows``/``flow_masks`` stay whole and are
+sliced by query frame, and the step noise is drawn at the window's full
+shape and sliced, so a sharded window computes the unsharded one.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 from insv2v_torch.diffusion.schedules import SamplerTables, sampler_step
 from insv2v_torch.ops.resize import warp_image
+from insv2v_torch.parallel.dist import frame_group
 
 __all__ = ["rescale_noise_cfg", "dual_cfg_eps", "sample_video_window", "sample_plain",
            "sample_edit_ref_image", "split_windows", "WindowSpec"]
@@ -32,11 +40,23 @@ __all__ = ["rescale_noise_cfg", "dual_cfg_eps", "sample_video_window", "sample_p
 UnetApply = Callable[..., torch.Tensor]
 
 
-def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float):
+def _std(x, group=None):
+    """Population std over every axis but the batch axis; with a frame
+    group, over every rank's frames (float64 moments, all-reduced)."""
+    axes = tuple(range(1, x.ndim))
+    if group is None:
+        return x.std(dim=axes, keepdim=True, unbiased=False)
+    xd = x.double()
+    s = group.all_reduce_sum(torch.stack([xd.sum(dim=axes), xd.square().sum(dim=axes)]))
+    n = x[0].numel() * group.size
+    var = (s[1] / n - (s[0] / n) ** 2).clamp_min(0.0)
+    return var.sqrt().to(x.dtype).reshape((-1,) + (1,) * len(axes))
+
+
+def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float, group=None):
     """arXiv 2305.08891 section 3.4 overexposure fix."""
-    axes = tuple(range(1, noise_cfg.ndim))
-    std_text = noise_pred_text.std(dim=axes, keepdim=True, unbiased=False)
-    std_cfg = noise_cfg.std(dim=axes, keepdim=True, unbiased=False)
+    std_text = _std(noise_pred_text, group)
+    std_cfg = _std(noise_cfg, group)
     rescaled = noise_cfg * (std_text / std_cfg)
     return guidance_rescale * rescaled + (1.0 - guidance_rescale) * noise_cfg
 
@@ -59,7 +79,7 @@ def dual_cfg_eps(unet: UnetApply, latent, img_cond, t: int, text_uncond, text_co
     e1, e2, e3 = unet(sample, t_b, ctx, video_start_index).float().chunk(3, dim=0)
     eps = e1 + img_cfg * (e2 - e1) + text_cfg * (e3 - e2)
     if guidance_rescale > 0:
-        eps = rescale_noise_cfg(eps, e1, guidance_rescale)
+        eps = rescale_noise_cfg(eps, e1, guidance_rescale, frame_group())
     return eps
 
 
@@ -77,9 +97,10 @@ def _flow_propagate(delta_ref, flows, flow_masks):
     refs whose warp lands there. delta_ref (B, F, h, w, C); flows
     (F, R, h, w, 2) and flow_masks (F, R, h, w, 1), one set per video and
     shared by the batch, each batch element's deltas warped on their own.
-    Returns (B, F, h, w, C), zero where no ref covers a pixel."""
-    b, f, h, w, c = delta_ref.shape
-    r = flows.shape[1]
+    Returns (B, F, h, w, C), zero where no ref covers a pixel. The query
+    frames are the flows' (F of them); delta_ref may hold more frames."""
+    b, _, h, w, c = delta_ref.shape
+    f, r = flows.shape[:2]
     d_ref = delta_ref[:, None, :r].expand(b, f, r, h, w, c)
     fl = flows[None].expand(b, f, r, h, w, 2)
     warped = warp_image(d_ref.reshape(-1, h, w, c), fl.reshape(-1, h, w, 2))
@@ -115,8 +136,13 @@ def sample_video_window(unet: UnetApply, tables: SamplerTables, latent, img_cond
         raise ValueError("flows and flow_masks go together")
     num_steps = tables.num_steps
     f = latent.shape[1]
+    group = frame_group()
+    f0 = 0 if group is None else group.rank * f  # global index of the first frame here
+    frames = slice(f0, f0 + f)
+    if flows is not None and group is not None:
+        flows, flow_masks = flows[frames], flow_masks[frames]
     correct_until = math.ceil(noise_correct_step * num_steps)
-    ref_mask = (torch.arange(f, device=latent.device) < num_ref_frames).float()
+    ref_mask = (torch.arange(f0, f0 + f, device=latent.device) < num_ref_frames).float()
     ref_mask = ref_mask[None, :, None, None, None]
     lat = latent.float()
     all_latent, all_x0 = [], []
@@ -130,12 +156,19 @@ def sample_video_window(unet: UnetApply, tables: SamplerTables, latent, img_cond
             delta_ref = (noise_ref - eps) * ref_mask  # zero on non-ref frames
             if flows is None:
                 n_ref = max(float(num_ref_frames), 1.0)
-                prop = delta_ref.sum(dim=1, keepdim=True) / n_ref
+                ref_sum = delta_ref.sum(dim=1, keepdim=True)
+                if group is not None:
+                    group.all_reduce_sum(ref_sum)
+                prop = ref_sum / n_ref
             else:
-                prop = _flow_propagate(delta_ref, flows, flow_masks)
+                full = delta_ref if group is None else group.all_gather_dim(delta_ref, 1)
+                prop = _flow_propagate(full, flows, flow_masks)
             eps = eps + ref_mask * delta_ref + (1.0 - ref_mask) * prop
-        nshape = (1,) + tuple(lat.shape[1:]) if share_batch_noise else tuple(lat.shape)
+        nshape = ((1,) if share_batch_noise else lat.shape[:1]) + (
+            f * (1 if group is None else group.size),) + tuple(lat.shape[2:])
         noise = _step_noise(tables, i, step_noise, nshape, lat)
+        if noise is not None and group is not None:
+            noise = noise[:, frames]
         lat, x0 = sampler_step(tables, lat, eps, i,
                                None if noise is None else noise.expand(lat.shape))
         if return_all:

@@ -15,6 +15,13 @@ and motion FF goes through ``geglu_ff`` (kernel B); the spatial
 self-attention through ``dot_attention`` (kernel A at S >= 256); the
 motion modules' attention over frames through ``temporal_attention``
 (kernel C) on the unpacked per-(pixel, head) F x F form.
+
+Frame-sharded (inside ``parallel.dist.frame_parallel``; the JAX package's
+``INSV2V_SP_AXIS``): each rank holds a contiguous share of the frames; the
+across-frame GroupNorms all-reduce their moments, and each motion module
+exchanges frame shards for pixel shards after ``proj_in`` (one all-to-all)
+so the rank runs its blocks on its pixels over all F frames, and back
+before ``proj_out``. Everything else is frame-local.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from insv2v_torch.ops.embeddings import (
 from insv2v_torch.ops.fused_ff import geglu_ff
 from insv2v_torch.ops.norms import group_norm, layer_norm
 from insv2v_torch.ops.resize import nearest_upsample_2x
+from insv2v_torch.parallel.dist import frame_group
 
 __all__ = ["UNetConfig", "UNet3DConditionModel"]
 
@@ -88,11 +96,14 @@ class UNetConfig:
 
 class GroupNorm(nn.GroupNorm):
     """nn.GroupNorm's parameters, applied channels-last through
-    ``ops.norms.group_norm``; ``reduce_axes`` as there."""
+    ``ops.norms.group_norm``; ``reduce_axes`` as there. On the 5D video
+    stream its statistics pool across frames, so under a frame group they
+    come from every rank's frames."""
 
     def forward(self, x, reduce_axes=None):
+        group = frame_group() if x.ndim == 5 and reduce_axes is None else None
         return group_norm(x, self.weight, self.bias, self.num_groups, self.eps,
-                          reduce_axes=reduce_axes)
+                          reduce_axes=reduce_axes, group=group)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -265,6 +276,11 @@ class TemporalTransformer3DModel(nn.Module):
         b, f, h, w, c = x.shape
         xf = self.norm(x.reshape(b * f, h, w, c))  # per-frame statistics
         seq = self.proj_in(xf.reshape(b, f, h * w, c))
+        group = frame_group()
+        if group is not None:
+            # frames sharded: exchange frame shards for pixel shards, so
+            # this rank runs the blocks on its pixels over all F frames
+            seq = group.all_to_all_dims(seq, split_dim=2, cat_dim=1)
         # the motion stream lives as (B, P, F, C): one relayout in and one
         # out, and q/k/v come out of their projections already in kernel
         # C's (B, P, F, heads, e) layout
@@ -272,6 +288,9 @@ class TemporalTransformer3DModel(nn.Module):
         for blk in self.transformer_blocks:
             seq = blk(seq, video_start_index)
         seq = self.proj_out(seq).transpose(1, 2)
+        if group is not None:  # and back: this rank's frames, every pixel
+            pixels = [len(r) for r in torch.arange(h * w).tensor_split(group.size)]
+            seq = group.all_to_all_dims(seq, split_dim=1, cat_dim=2, cat_sizes=pixels)
         return seq.reshape(b, f, h, w, c) + x
 
 

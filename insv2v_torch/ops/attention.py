@@ -61,11 +61,12 @@ def attention(q, k, v, scale: Optional[float] = None, bias=None):
     ``bias`` is added to the logits (the CLIP causal mask)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if bias is not None:
-        logits = logits + bias.float()
-    probs = torch.softmax(logits, dim=-1)
-    return torch.matmul(probs.to(v.dtype).float(), v.float()).to(q.dtype)
+    with torch.autocast(q.device.type, enabled=False):  # f32 products under autocast too
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        if bias is not None:
+            logits = logits + bias.float()
+        probs = torch.softmax(logits, dim=-1)
+        return torch.matmul(probs.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
 def flash_attention_reference(q, k, v, scale: Optional[float] = None):

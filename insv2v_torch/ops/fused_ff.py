@@ -93,6 +93,10 @@ def fused_geglu_ff(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float = 1e-5):
     seven tensors: the backward recomputes the plain twin."""
     if not x.is_cuda:
         return geglu_ff_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, eps=eps)
+    # weights stored wider than the stream (float32 under autocast) are
+    # cast at the call, as the kernel takes bf16 throughout
+    ln_scale, ln_bias, w1, b1, w2, b2 = (t.to(x.dtype) for t in (ln_scale, ln_bias, w1, b1,
+                                                                  w2, b2))
     return KernelGrad.apply(functools.partial(_launch_ff, eps=eps),
                             functools.partial(geglu_ff_reference, eps=eps),
                             x, ln_scale, ln_bias, w1, b1, w2, b2)

@@ -10,10 +10,13 @@ pools over is parity-critical and chosen by the caller:
 
 Statistics accumulate in float32 whatever the activation dtype, and the
 affine output is computed in float32 and rounded once to the input dtype.
+With a frame group (``parallel.dist.frame_parallel``), GroupNorm's
+statistics over the sharded frame axis come from every rank's moments.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Optional, Sequence
 
@@ -36,16 +39,23 @@ def group_norm(
     num_groups: int = 32,
     eps: float = 1e-6,
     reduce_axes: Optional[Sequence[int]] = None,
+    group=None,
 ) -> torch.Tensor:
     """GroupNorm of ``x`` (..., C). ``reduce_axes`` defaults to every axis
-    except the batch axis 0 and the channel axis."""
+    except the batch axis 0 and the channel axis. ``group``: a
+    ``parallel.dist.Group`` over whose ranks one of the reduced axes is
+    sharded; the statistics are then every rank's (one all-reduce of the
+    per-group sum, sum of squares and count, in float64)."""
     c = x.shape[-1]
     assert c % num_groups == 0, f"channels {c} not divisible by groups {num_groups}"
     if reduce_axes is None:
         reduce_axes = tuple(range(1, x.ndim - 1))
     xg = x.reshape(x.shape[:-1] + (num_groups, c // num_groups))
     axes = tuple(reduce_axes) + (xg.ndim - 1,)
-    var, mean = torch.var_mean(xg.float(), dim=axes, unbiased=False, keepdim=True)
+    if group is None:
+        var, mean = torch.var_mean(xg.float(), dim=axes, unbiased=False, keepdim=True)
+    else:
+        mean, var = _moments_over_ranks(xg, axes, group)
     # y = (x - mean) * rstd * scale + bias = x * a + b, with the per-group
     # (a, b) in f32: one pass over x that computes in f32 and writes x.dtype
     a = torch.rsqrt(var + eps) * scale.float().reshape(num_groups, -1)
@@ -54,6 +64,19 @@ def group_norm(
         # autograd does not record out= ops: the same f32 affine, rounded after
         return torch.addcmul(b, xg, a).to(x.dtype).reshape(x.shape)
     return torch.addcmul(b, xg, a, out=torch.empty_like(xg)).reshape(x.shape)
+
+
+def _moments_over_ranks(xg, axes, group):
+    """(mean, var) in float32 over ``axes`` of every rank's ``xg``."""
+    xd = xg.double()
+    count = torch.full((1,), float(math.prod(xg.shape[a] for a in axes)), dtype=torch.float64,
+                       device=xg.device)
+    s1, s2 = xd.sum(dim=axes, keepdim=True), xd.square().sum(dim=axes, keepdim=True)
+    moments = group.all_reduce_sum(torch.cat([s1.reshape(-1), s2.reshape(-1), count]))
+    n = moments[-1]
+    mean = moments[:s1.numel()].reshape(s1.shape) / n
+    var = (moments[s1.numel():-1].reshape(s1.shape) / n - mean * mean).clamp_min(0.0)
+    return mean.float(), var.float()
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -66,4 +89,5 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         fused = FUSED_LAYER_NORM
     if fused:
         return fused_layer_norm(x, scale, bias, eps)
-    return F.layer_norm(x, x.shape[-1:], scale.to(x.dtype), bias.to(x.dtype), eps)
+    # under autocast F.layer_norm computes and returns float32: round to x's dtype
+    return F.layer_norm(x, x.shape[-1:], scale.to(x.dtype), bias.to(x.dtype), eps).to(x.dtype)

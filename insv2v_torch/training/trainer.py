@@ -1,4 +1,4 @@
-"""Motion-module trainer on one GPU.
+"""Motion-module trainer, on one GPU or data-parallel over several ranks.
 
 Counterpart of ``training/trainer.py`` in the JAX package:
 
@@ -19,6 +19,19 @@ Counterpart of ``training/trainer.py`` in the JAX package:
     of the batch dropped to zero, x0 scaled by 0.18215, t uniform in
     [0, T), q-sample, channel concat; epsilon or sample target.
 
+Data parallelism (``Trainer(..., group=)``, the JAX trainer's dp mesh
+with ZeRO-2): each rank runs its share of every microbatch
+(``parallel.dist.local_batch_slice``), the float32 gradient sum and loss
+sum are all-reduced as one flat bucket and divided by ``accum * R``, and
+the optimizer state is partitioned over the ranks by whole tensors
+(``torch.distributed.optim.ZeroRedundancyOptimizer``, greedy by size):
+each rank steps the masters it owns and broadcasts them, then every rank
+copies the masters into its model. Whole tensors, because ``Adam8bit``
+quantizes each flattened tensor in blocks of 256: slicing a tensor across
+ranks would move its block boundaries, and so its numbers.
+``TrainConfig.compute_dtype`` runs the step under autocast, for a model
+stored in float32 and computed in bf16 (the JAX CLI's ``--frozen-f32``).
+
 The JAX trainer forces its UNet's split-skip up-block path off; the port
 has only the concat path. Randomness: the five draws of a microbatch (the
 two posterior normals ``enc_cond`` and ``enc_edit``, the cond-drop mask
@@ -28,13 +41,16 @@ in through ``draws``, so a test can replay a JAX run's draws.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.optim import ZeroRedundancyOptimizer
 
 from insv2v_torch.diffusion.schedules import DiffusionSchedule, add_noise
 from insv2v_torch.models.vae import SD_SCALE_FACTOR
+from insv2v_torch.parallel.dist import Group
 from insv2v_torch.training.quantized_adam import Adam8bit
 
 __all__ = ["TrainConfig", "TrainState", "motion_param_mask", "cast_frozen_to_bf16",
@@ -56,13 +72,17 @@ class TrainConfig:
     num_train_timesteps: int = 1000
     beta_start: float = 0.00085
     beta_end: float = 0.012
+    # None: compute in the models' own dtype; "bfloat16": autocast to it
+    # (models stored in float32 on the GPU)
+    compute_dtype: Optional[str] = None
 
 
 @dataclasses.dataclass
 class TrainState:
     step: int
     params: Dict[str, torch.Tensor]  # float32 masters of the trainable parameters
-    optimizer: torch.optim.Optimizer  # over the masters
+    # over the masters; sharded over the ranks under data parallelism
+    optimizer: torch.optim.Optimizer
 
 
 def motion_param_mask(params: Mapping[str, torch.Tensor],
@@ -80,14 +100,20 @@ def cast_frozen_to_bf16(params: Mapping[str, torch.Tensor],
             for k, v in params.items()}
 
 
-def make_optimizer(cfg: TrainConfig, params: Sequence[torch.Tensor]) -> torch.optim.Optimizer:
+def make_optimizer(cfg: TrainConfig, params: Sequence[torch.Tensor],
+                   group: Optional[Group] = None) -> torch.optim.Optimizer:
     """Adam over ``params`` (the float32 masters): ``torch.optim.Adam``,
-    whose update is optax's, or the int8-moment ``Adam8bit``."""
+    whose update is optax's, or the int8-moment ``Adam8bit``. With a
+    ``group``, its state is partitioned over the ranks by whole tensors."""
     if cfg.optimizer == "adam8bit":
-        return Adam8bit(params, cfg.lr, betas=cfg.betas)
-    if cfg.optimizer == "adam":
-        return torch.optim.Adam(params, cfg.lr, betas=cfg.betas, eps=1e-8)
-    raise ValueError(f"optimizer {cfg.optimizer!r} unknown")
+        cls, kw = Adam8bit, dict(lr=cfg.lr, betas=cfg.betas)
+    elif cfg.optimizer == "adam":
+        cls, kw = torch.optim.Adam, dict(lr=cfg.lr, betas=cfg.betas, eps=1e-8)
+    else:
+        raise ValueError(f"optimizer {cfg.optimizer!r} unknown")
+    if group is None:
+        return cls(params, **kw)
+    return ZeroRedundancyOptimizer(params, optimizer_class=cls, **kw)
 
 
 def _loss(pred, target, kind: str) -> torch.Tensor:
@@ -98,11 +124,15 @@ def _loss(pred, target, kind: str) -> torch.Tensor:
 class Trainer:
     """The models and the step. A batch holds ``input_video`` and
     ``edited_video`` (accum * B, F, H, W, 3) in [-1, 1] and ``prompt_ids``
-    (accum * B, 77); the step splits it into ``accum`` microbatches of B."""
+    (accum * B, 77); the step splits it into ``accum`` microbatches of B.
+    With a ``group`` of R ranks the batch is this rank's local batch
+    (``local_batch_slice``) and the step's numbers are the global batch's."""
 
-    def __init__(self, unet, vae, text_encoder, cfg: TrainConfig = TrainConfig()):
+    def __init__(self, unet, vae, text_encoder, cfg: TrainConfig = TrainConfig(),
+                 group: Optional[Group] = None):
         self.unet, self.vae, self.text_encoder = unet, vae, text_encoder
         self.cfg = cfg
+        self.group = group
         self.schedule = DiffusionSchedule.create(
             beta_schedule=cfg.beta_schedule, num_train_timesteps=cfg.num_train_timesteps,
             beta_start=cfg.beta_start, beta_end=cfg.beta_end)
@@ -127,7 +157,15 @@ class Trainer:
         masters = {n: p.detach().float().clone() for n, p in params.items() if mask[n]}
         if not masters:
             raise ValueError(f"no UNet parameter matches {pattern!r}")
-        return TrainState(0, masters, make_optimizer(self.cfg, list(masters.values())))
+        return TrainState(0, masters, make_optimizer(self.cfg, list(masters.values()),
+                                                     self.group))
+
+    def compute(self):
+        """The context the models compute in: autocast to
+        ``cfg.compute_dtype`` where one is set, else nothing."""
+        if self.cfg.compute_dtype is None:
+            return contextlib.nullcontext()
+        return torch.autocast(self.device.type, dtype=getattr(torch, self.cfg.compute_dtype))
 
     def push_params(self, state: TrainState) -> None:
         """Copy the masters into the model's parameters (its dtype)."""
@@ -151,7 +189,7 @@ class Trainer:
         inp = torch.as_tensor(micro["input_video"], device=dev)
         edited = torch.as_tensor(micro["edited_video"], device=dev)
         b, f = inp.shape[:2]
-        with torch.no_grad():
+        with torch.no_grad(), self.compute():
             text_emb = self.text_encoder(torch.as_tensor(micro["prompt_ids"], device=dev))
 
             def encode(video, key):
@@ -172,7 +210,8 @@ class Trainer:
             t = draw("t", lambda: torch.randint(0, self.schedule.num_train_timesteps, (b,),
                                                 generator=generator, device=dev))
             sample = torch.cat([add_noise(self.schedule, x0, eps, t), cond], dim=-1)
-        pred = self.unet(sample, t, text_emb)
+        with self.compute():
+            pred = self.unet(sample, t, text_emb)
         target = eps if cfg.prediction_type == "epsilon" else x0
         return _loss(pred, target, cfg.loss_type)
 
@@ -181,7 +220,9 @@ class Trainer:
                          draws: Optional[Sequence[Mapping]] = None
                          ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """(mean loss, mean float32 gradient of each master) over the
-        batch's ``accum`` microbatches."""
+        batch's ``accum`` microbatches, and over the group's ranks: the
+        gradient sums and the loss sum live in one flat float32 bucket,
+        all-reduced once."""
         accum = self.cfg.accumulate_grad_batches
         n = len(batch["prompt_ids"])
         if n % accum:
@@ -189,8 +230,11 @@ class Trainer:
         mb = n // accum
         params = dict(self.unet.named_parameters())
         train = [params[name] for name in state.params]
-        g_sum = [torch.zeros_like(m) for m in state.params.values()]
-        loss_sum = torch.zeros((), device=self.device)
+        masters = list(state.params.values())
+        bucket = torch.zeros(sum(m.numel() for m in masters) + 1, device=self.device)
+        g_sum = [g.view_as(m) for g, m in zip(bucket[:-1].split([m.numel() for m in masters]),
+                                               masters)]
+        loss_sum = bucket[-1]
         for i in range(accum):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             loss = self.microbatch_loss(micro, draws[i] if draws else None, generator)
@@ -199,7 +243,10 @@ class Trainer:
             for acc, g in zip(g_sum, grads):
                 acc.add_(g.float())
             loss_sum += loss.detach()
-        return loss_sum / accum, [g.div_(accum) for g in g_sum]
+        if self.group is not None:
+            self.group.all_reduce_mean(bucket)
+        bucket.div_(accum)
+        return loss_sum, g_sum
 
     def train_step(self, state: TrainState, batch: Mapping,
                    generator: Optional[torch.Generator] = None,

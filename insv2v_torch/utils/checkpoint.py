@@ -164,15 +164,20 @@ def load_raft_state_dict(model: torch.nn.Module, source, mask_order: str = "refe
         raise ValueError(f"RAFT checkpoint: missing {missing[:5]}, unknown {unexpected[:5]}")
 
 
-def save_train_state(state, ckpt_dir: str, step: Optional[int] = None) -> str:
-    """The state under ``ckpt_dir/step_XXXXXXXX.pt``; returns the path."""
+def save_train_state(state, ckpt_dir: str, step: Optional[int] = None,
+                     optimizer_state: Optional[dict] = None) -> str:
+    """The state under ``ckpt_dir/step_XXXXXXXX.pt``; returns the path.
+    ``optimizer_state``: the optimizer's state dict where it is not
+    ``state.optimizer.state_dict()`` (a sharded optimizer's, gathered by
+    ``parallel.dist.gather_optimizer_state``)."""
     step = state.step if step is None else step
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step:08d}.pt")
     tmp = path + ".tmp"
     torch.save({"step": state.step,
                 "params": {k: v.detach().cpu() for k, v in state.params.items()},
-                "optimizer": state.optimizer.state_dict()}, tmp)
+                "optimizer": (state.optimizer.state_dict() if optimizer_state is None
+                              else optimizer_state)}, tmp)
     os.replace(tmp, path)
     return path
 
