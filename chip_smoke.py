@@ -13,13 +13,17 @@ frame- and batch-sharded windows) and times the native batch loader.
     python3 chip_smoke.py                # every phase, one GPU
     python3 chip_smoke.py --only env,build,parity,grad,train,variants,flow,loveu,datagen
     python3 chip_smoke.py --only env,build,dp,sp,loader
+    python3 chip_smoke.py --only env,build,split,demo,t5
 
 Phases: env, build, parity (kernels A, A', B, C, D against their twins,
 with times, bounds and the one-call PyTorch yardstick), unet (GPU bf16 vs
 CPU float32 on a small latent), edit (32 frames at 256x384, 3 windows,
 50-step DDIM: the workload bench.py times for the JAX package), profile
 (one UNet call of the edit under torch.profiler: device time by kernel
-class and the device's idle share), variants (kernel A' and kernel D
+class and the device's idle share), split (the up blocks' split-skip path,
+the edit's default, against the concat path on one UNet call of the edit,
+and against the CPU's float32 call; both calls profiled: busy time, copies,
+norms, convolution, idle share), variants (kernel A' and kernel D
 switched on: one UNet call of the edit against the default kernels, then a
 10-step edit window), grad (a full-width UNet forward and backward on the
 GPU: the motion gradients against the CPU float32 run, and non-zero
@@ -31,8 +35,12 @@ weights: flow and denoise seconds per window, and the card's RAFT against
 the CPU's in float32), loveu (a one-video LOVEU-TGVE folder written
 through cv2; ``run_loveu_tgve`` at its defaults, 384x384, 32 frames, DDPM
 20, serially, resumed, and with ``--batch-edits 4``; ``score_loveu`` on its
-GIFs with a random ViT-L/14; ``edit_video`` with Farneback flow),
-datagen (the full-width ModelScope UNetSD, GPU bf16 vs CPU float32 with
+GIFs with a random ViT-L/14; ``edit_video`` with Farneback flow), demo
+(the web demo at its defaults, 384x384, 32 frames, DDPM 20, served on a
+local port: the form, two edits of a 40-frame mp4, motion compensation off
+and on, answered as GIFs, kernel A, B and C launches, a 413), t5 (T5
+v1.1-large on the card against the CPU's float32 run, ms per encode, and
+``ClipT5Encoder`` with the ViT-L/14 text tower), datagen (the full-width ModelScope UNetSD, GPU bf16 vs CPU float32 with
 a plain, a (key, value) and an ``sa_share`` context; ``generate_dataset``
 at its defaults, v2 with the CLIP filter over random ViT-L/14 weights and
 v1 without it: seconds per pair and per UNetSD call, kernel A's launches),
@@ -135,6 +143,19 @@ RANKS, SP_STEPS, SHARD_TOL = 2, 4, 5e-2
 # it. The windows' SHARD_TOL cannot see that fault (2.84e-2 against a
 # clean 2.69e-2: CFG 7.5 over 4 steps amplifies the bf16 noise)
 SP_CALL_TOL = 2.5e-2
+# relative L2 of one bf16 UNet call of the edit on the up blocks' split-skip
+# path against the concat path on the same weights. Only bf16 roundings
+# separate them (conv1 and the shortcut as two products rounded and summed,
+# the split GroupNorm's one-pass variance): in float32 on the card they
+# agree to SPLIT_F32_TOL (2.8e-6 read). On an NVIDIA H100 80GB HBM3 at
+# 700 W each bf16 call read 1.18-1.21e-2 from the float32 call and the two
+# 1.25e-2 from each other: bf16 noise, which the decoder carries to the
+# output from any rounding. So the gate is twice one call's bf16 error, as
+# SP_CALL_TOL's is
+SPLIT_TOL, SPLIT_F32_TOL = 2.5e-2, 1e-4
+# the split-skip default stays on unless the split call's device time is
+# worse than the concat call's by more than this share
+SPLIT_SLOWER = 0.01
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "instruct_v2v.yaml")
 # a video of the packaged edit-instruction dict, so the runner's default
@@ -240,14 +261,25 @@ def _report(name, shape, err, kernel, plain, library, iters, bms, by):
             "ms_source": {"ms": ms_clock, "plain_ms": plain_clock, "library_ms": lib_clock}}
 
 
+def _log_grid(name, shape, grid):
+    """A kernel's grid (blocks, threads, blocks resident an SM) and the
+    waves it takes on this card's SMs."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    waves = grid["blocks"] / (grid["resident"] * sms) if grid["resident"] else float("nan")
+    log(f"grid {name} {shape}: blocks {grid['blocks']} of {grid['threads']} threads, "
+        f"{grid['resident']} resident an SM, {waves:.2f} waves on {sms} SMs")
+
+
 def phase_parity(gen):
     import torch.nn.functional as F
 
     from insv2v_torch.ops.attention import (flash_attention, flash_attention_headfold,
                                             flash_attention_reference, flash_grid,
-                                            temporal_attention, temporal_attention_reference)
+                                            temporal_attention, temporal_attention_reference,
+                                            temporal_grid)
     from insv2v_torch.ops.fused_ff import ff_grid, fused_geglu_ff, geglu_ff_reference
-    from insv2v_torch.ops.fused_norm import fused_layer_norm, fused_layer_norm_reference
+    from insv2v_torch.ops.fused_norm import (fused_layer_norm, fused_layer_norm_reference,
+                                             layer_norm_grid)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -333,6 +365,7 @@ def phase_parity(gen):
         rows.append(_report("temporal_attention", shape, err, lambda: temporal_attention(q, k, v),
                             lambda: temporal_attention_reference(q, k, v),
                             lambda: F.scaled_dot_product_attention(qs, ks, vs), 20, bms, by))
+        _log_grid("temporal_attention", shape, temporal_grid(*shape))
     entries.append(_entry("temporal_attention", "insv2v_torch/csrc/temporal_attn.cu",
                           "insv2v_tpu/ops/attention.py:345", rows))
 
@@ -349,6 +382,7 @@ def phase_parity(gen):
         rows.append(_report("fused_layer_norm", (n, c), err, lambda: fused_layer_norm(x, lw, lb),
                             lambda: fused_layer_norm_reference(x, lw, lb),
                             lambda: F.layer_norm(x, (c,), lw16, lb16), 20, bms, by))
+        _log_grid("fused_layer_norm", (n, c), layer_norm_grid(n, c))
     entries.append(_entry("fused_layer_norm", "insv2v_torch/csrc/layer_norm.cu",
                           "insv2v_tpu/ops/fused_norm.py:22", rows))
     torch.backends.cudnn.allow_tf32 = True
@@ -406,8 +440,12 @@ def phase_edit(models, args, gen):
     from insv2v_torch.diffusion.samplers import split_windows
 
     windows = split_windows(f, 16, 4)
+    from insv2v_torch.models.unet3d import uses_split_skip
+
+    up = "split-skip" if uses_split_skip(models["unet"].cfg, 3) else "concat"
     log(f"edit: {f} frames {hgt}x{wid}, DDIM {args.steps} steps, "
-        f"{len(windows)} windows, dual CFG (3x batch = {3 * 16} frames per UNet call)")
+        f"{len(windows)} windows, dual CFG (3x batch = {3 * 16} frames per UNet call), "
+        f"up blocks on the {up} path")
     _zero_launches()
     torch.cuda.reset_peak_memory_stats()
     timings = {}
@@ -646,6 +684,140 @@ def phase_loveu(gen):
         if edited.shape != (16, 384, 768, 3) or not np_finite(edited):
             raise AssertionError(f"edit_video output {edited.shape}")
     return counts
+
+
+def phase_demo(args, gen):
+    """The web demo at its defaults (DDPM 20, 384x384, 32 frames, random
+    weights) served on a free local port in a thread: the form, then two
+    edits of a 40-frame mp4 (8 fps, written by cv2), the first with motion
+    compensation off and answered as the raw GIF, the second with it on
+    (Farneback through "auto": no RAFT weights) and answered inline, each
+    a GIF of (32, 384, 768, 3) with A, B and C launched; a body over
+    ``MAX_BODY_BYTES`` refused with 413 before it is read."""
+    import base64
+    import http.client
+    import re
+    import tempfile
+    import threading
+
+    import cv2
+    import numpy as np
+
+    from insv2v_torch.apps import gradio_demo, web_demo
+    from insv2v_torch.utils.media import load_gif
+
+    os.environ.pop("INSV2V_RAFT_WEIGHTS", None)
+    demo_args = web_demo.build_parser().parse_args(
+        ["--config", CONFIG, "--allow-random-weights", "--port", "0"])
+    server = web_demo.make_server(demo_args)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+
+    def request(method, target, body=None, headers=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request(method, target, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        out = (resp.status, resp.getheader("Content-Type"), resp.read())
+        conn.close()
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            video = (_edit_frames(gen, 40, 480, 640) * 127.5 + 127.5).round().astype(np.uint8)
+            path = os.path.join(tmp, "in.mp4")
+            vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 8, (640, 480))
+            for fr in video:
+                vw.write(fr[..., ::-1].copy())
+            vw.release()
+            data = open(path, "rb").read()
+            status, _, page = request("GET", "/")
+            if status != 200 or b'action="/edit"' not in page:
+                raise AssertionError(f"demo form: status {status}")
+            t0 = time.perf_counter()
+            gradio_demo.get_editor(demo_args)  # the lazy editor, built before the timings
+            log(f"demo: editor built in {time.perf_counter() - t0:.3f} s")
+            _zero_launches()
+            for motion in (False, True):
+                boundary = "insv2v-demo"
+                fields = [("video", data, 'filename="in.mp4"'), ("prompt", b"make it snowy", ""),
+                          ("seed", b"0", "")] + ([("motion_comp", b"on", "")] if motion else [])
+                body = b"".join(
+                    f'--{boundary}\r\nContent-Disposition: form-data; name="{name}"'
+                    f'{"; " + extra if extra else ""}\r\n\r\n'.encode() + value + b"\r\n"
+                    for name, value, extra in fields) + f"--{boundary}--\r\n".encode()
+                headers = {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+                if not motion:
+                    headers["Accept"] = "image/gif"
+                t0 = time.perf_counter()
+                status, ctype, answer = request("POST", "/edit", body, headers)
+                secs = time.perf_counter() - t0
+                if status != 200:
+                    raise AssertionError(f"demo edit: status {status}: {answer[:200]}")
+                if not motion:
+                    gif_bytes = answer
+                else:
+                    gif_bytes = base64.b64decode(re.search(
+                        rb"data:image/gif;base64,([A-Za-z0-9+/=]+)", answer).group(1))
+                out = os.path.join(tmp, f"answer_{int(motion)}.gif")
+                with open(out, "wb") as f:
+                    f.write(gif_bytes)
+                gif = load_gif(out)
+                log(f"demo: POST /edit, motion compensation {'on' if motion else 'off'}: "
+                    f"{secs:.3f} s, answered {ctype}, GIF {gif.shape}")
+                if gif.shape != (32, 384, 768, 3) or not np_finite(gif):
+                    raise AssertionError(f"demo GIF {gif.shape}")
+            counts = _read_launches("demo", ("flash_attention", "fused_geglu_ff",
+                                             "temporal_attention"))
+            status, _, _ = request("POST", "/edit", None, {
+                "Content-Length": str(web_demo.MAX_BODY_BYTES + 1),
+                "Content-Type": "multipart/form-data; boundary=x"})
+            log(f"demo: a body over MAX_BODY_BYTES answered {status}")
+            if status != 413:
+                raise AssertionError(f"demo: an oversized body answered {status}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            gradio_demo._EDITOR = None  # the demo's models go
+    return counts
+
+
+def phase_t5(args, gen):
+    """T5 v1.1-large (24 blocks at d_model 1024, random weights from the
+    seed) in bf16 on the card against the same bf16-rounded weights in
+    float32 on the CPU, on 2 x 77 ids: relative L2 under the bf16 gate and
+    ms per encode; then ``ClipT5Encoder`` over the ViT-L/14 text tower and
+    T5 on the card, its two outputs' shapes."""
+    import copy
+
+    from insv2v_torch.models.t5_text import build_clip_t5_encoder, build_t5_encoder
+
+    cpu = build_t5_encoder(device="cpu", dtype=torch.bfloat16, seed=args.seed).float()
+    ids = torch.randint(0, cpu.cfg.vocab_size, (2, 77), generator=gen)
+    with torch.no_grad():
+        ref = cpu(ids)
+        gpu = copy.deepcopy(cpu).to("cuda", torch.bfloat16)
+        del cpu
+        ids_gpu = ids.cuda()
+        got = gpu(ids_gpu)
+        ms = time_ms(lambda: gpu(ids_gpu), 10)
+    got = got.cpu()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    log(f"t5 v1.1-large: GPU bf16 vs CPU f32 rel L2 {rel:.3e} (tol {UNET_TOL:g}); "
+        f"{ms:.3f} ms per encode of 2 x 77 ids; output {tuple(got.shape)} {got.dtype}")
+    if not (got.dtype == torch.float32 and torch.isfinite(got).all() and rel <= UNET_TOL):
+        raise AssertionError(f"T5 on the card disagrees with the CPU: {rel}")
+    del gpu
+    enc = build_clip_t5_encoder(device="cuda", seed=args.seed)
+    clip_ids = torch.randint(0, 49408, (2, 77), generator=gen).cuda()
+    with torch.no_grad():
+        clip_z, t5_z = enc(clip_ids, ids_gpu)
+    log(f"t5: ClipT5Encoder (ViT-L/14 text + T5 v1.1-large): {tuple(clip_z.shape)}, "
+        f"{tuple(t5_z.shape)}")
+    if (clip_z.shape != (2, 77, 768) or t5_z.shape != (2, 77, 1024)
+            or not (torch.isfinite(clip_z).all() and torch.isfinite(t5_z).all())):
+        raise AssertionError(f"ClipT5Encoder outputs {clip_z.shape} {t5_z.shape}")
 
 
 def _wake_zero_weights(model, gen):
@@ -1052,29 +1224,40 @@ def phase_train(models, args, gen):
     return counts
 
 
-PROFILE_CLASSES = (  # kernel-name fragments, matched in this order
+PROFILE_CLASSES = (  # kernel-name fragments, matched in this order; the rest is
     ("kernel A (flash)", ("flash_fwd",)), ("kernel B (ff)", ("ff_gate", "ff_out")),
-    ("kernel C (temporal)", ("temporal_attn",)),
+    ("kernel C (temporal)", ("temporal_attn",)),  # "other elementwise"
     ("convolution", ("conv", "fprop", "implicit", "winograd")),
-    ("matmul", ("gemm", "nvjet", "cutlass", "xmma")))
+    ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
+    ("copies", ("copy", "nchwtonhwc", "nhwctonchw")),
+    ("norms", ("norm", "welford", "reduce")))
+
+
+def _kernel_class(key: str) -> str:
+    name = key.lower()
+    return next((c for c, frags in PROFILE_CLASSES if any(f in name for f in frags)),
+                "other elementwise")
+
+
+def _class_ms(kernels) -> dict:
+    """Device ms of profiler kernel events summed by PROFILE_CLASSES."""
+    by_class = {}
+    for e in kernels:
+        cls = _kernel_class(e.key)
+        by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3
+    return by_class
 
 
 def _by_class(kernels) -> str:
-    """Device time of profiler kernel events summed by PROFILE_CLASSES."""
-    by_class = {}
-    for e in kernels:
-        name = e.key.lower()
-        cls = next((c for c, frags in PROFILE_CLASSES if any(f in name for f in frags)),
-                   "other (norms, elementwise, copies)")
-        by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3
-    return ", ".join(f"{c} {ms:.2f} ms" for c, ms in sorted(by_class.items(),
+    return ", ".join(f"{c} {ms:.2f} ms" for c, ms in sorted(_class_ms(kernels).items(),
                                                              key=lambda kv: -kv[1]))
 
 
 def _profile_call(call, tag, label):
     """One call's synchronised wall time, then its device time under
     torch.profiler summed by kernel class, and the device's busy share of
-    the wall time; the dozen longest kernels."""
+    the wall time; the dozen longest kernels. Returns the numbers (None
+    where the profiler recorded no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1092,13 +1275,18 @@ def _profile_call(call, tag, label):
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not kernels:
         log(f"{tag}: the profiler recorded no device time; breakdown not measured")
-        return
+        return None
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    idle = max(0.0, 1 - busy_ms / wall_ms)
     log(f"{tag}: {label} {wall_ms:.2f} ms wall, device busy {busy_ms:.2f} ms "
-        f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}); by class: {_by_class(kernels)}")
+        f"(idle share {idle:.3f}); by class: {_by_class(kernels)}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"{tag}:   {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d} calls  "
             f"{e.key[:110]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle": idle,
+            "classes": _class_ms(kernels),
+            "copies": [(e.key, e.count, e.self_device_time_total / 1e3) for e in kernels
+                       if _kernel_class(e.key) == "copies"]}
 
 
 def phase_profile(models, gen):
@@ -1110,6 +1298,183 @@ def phase_profile(models, gen):
     ctx = torch.randn(3, 77, 768, generator=gen).cuda().bfloat16()
     t = torch.full((3,), 501, device="cuda")
     _profile_call(lambda: unet(x, t, ctx, video_start_index=0), "profile", "one UNet call")
+
+
+@contextlib.contextmanager
+def _plain_twins():
+    """The UNet's kernel calls (A, B, C) routed to their plain twins for a
+    ``with`` block, so that it runs in float32 on the card."""
+    from insv2v_torch.models import unet3d
+    from insv2v_torch.ops import attention, fused_ff
+
+    saved = attention.flash_attention, unet3d.temporal_attention, unet3d.geglu_ff
+    attention.flash_attention = lambda q, k, v, scale=None, headfold=None: \
+        attention.flash_attention_reference(q, k, v, scale)
+    unet3d.temporal_attention = attention.temporal_attention_reference
+    unet3d.geglu_ff = fused_ff.geglu_ff_reference
+    try:
+        yield
+    finally:
+        attention.flash_attention, unet3d.temporal_attention, unet3d.geglu_ff = saved
+
+
+def _conv1_weight_copies(unet, path, x, t, ctx):
+    """What conv1's kernel layout costs: the 12 up-block conv1s at the edit
+    call's shapes, device ms of the whole kernel on the concat input and of
+    the two slices on the parts, each with the kernels as stored (cuDNN's
+    channels-last convolution copies a kernel that is not channels-last
+    contiguous at every call) and made channels-last beforehand (what the
+    split path keeps, ``unet3d._kernel_parts``)."""
+    import torch.nn.functional as F
+
+    shapes = []
+    hooks = [r.register_forward_pre_hook(
+        lambda mod, a, kw: shapes.append((mod, a[0].shape, kw["skip"].shape)), with_kwargs=True)
+        for blk in unet.up_blocks for r in blk.resnets]
+    with torch.no_grad(), path(unet, True):
+        unet(x, t, ctx, video_start_index=0)
+    for h in hooks:
+        h.remove()
+    cl = torch.channels_last
+    calls = []
+    for mod, xs, ss in shapes:
+        b, f, hh, ww, c1 = xs
+        c2 = ss[-1]
+        nchw = lambda c: torch.randn(b * f, c, hh, ww, device="cuda", dtype=torch.bfloat16
+                                     ).contiguous(memory_format=cl)
+        w, bias = mod.conv1.weight, mod.conv1.bias
+        calls.append((nchw(c1 + c2), nchw(c1), nchw(c2), c1, w, bias))
+    conv = lambda inp, wt, bs: F.conv2d(inp, wt, bs, padding=1)
+    variants = {
+        "whole, as stored": lambda: [conv(xc, w, bs) for xc, _, _, _, w, bs in calls],
+        "slices, as stored": lambda: [(conv(x1, w[:, :c1], bs), conv(x2, w[:, c1:], None))
+                                      for _, x1, x2, c1, w, bs in calls]}
+    made = [(xc, x1, x2, w.contiguous(memory_format=cl), w[:, :c1].contiguous(memory_format=cl),
+             w[:, c1:].contiguous(memory_format=cl), bs) for xc, x1, x2, c1, w, bs in calls]
+    variants["whole, channels-last"] = lambda: [conv(xc, w, bs) for xc, _, _, w, _, _, bs in made]
+    variants["slices, channels-last"] = lambda: [(conv(x1, wa, bs), conv(x2, wb, None))
+                                                 for _, x1, x2, _, wa, wb, bs in made]
+    params = sum(c[4].numel() for c in calls)
+    with torch.no_grad():
+        times = {name: device_ms(fn, 5)[0] for name, fn in variants.items()}
+    log(f"split: the 12 up-block conv1s ({params / 1e6:.1f} M kernel parameters), device ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+
+
+def phase_split(models, gen):
+    """The up blocks' split-skip path (``INSV2V_SPLIT_SKIP``, on by default
+    at batch <= 3) against the concat path: one UNet call of the edit (3 x
+    16 frames of 32x48 latents) on the same bf16 weights, which must agree
+    to SPLIT_TOL and launch A, B and C on the split path; both paths in
+    float32 on the card through the plain twins (TF32 off), which must
+    agree to SPLIT_F32_TOL, and each bf16 call against that float32 call;
+    the split call on the unet phase's small latent against the CPU's
+    float32 concat call; then each bf16 call profiled twice in turn
+    (device busy ms, by class, idle share, the copy kernels), the least
+    busy time of each path deciding whether the default should stay on,
+    and timed back to back in turns (wall per call, host gaps included)."""
+    import copy
+    import dataclasses
+
+    from insv2v_torch.models.unet3d import uses_split_skip
+
+    unet = models["unet"]
+    cfg = unet.cfg
+    x = torch.randn(3, 16, 32, 48, 8, generator=gen).cuda().bfloat16()
+    ctx = torch.randn(3, 77, 768, generator=gen).cuda().bfloat16()
+    t = torch.full((3,), 501, device="cuda")
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    @contextlib.contextmanager
+    def path(model, split):
+        saved = model.cfg
+        model.cfg = dataclasses.replace(saved, split_skip=split)
+        try:
+            yield
+        finally:
+            model.cfg = saved
+
+    with torch.no_grad():
+        with path(unet, True):
+            _zero_launches()
+            got = unet(x, t, ctx, video_start_index=0).float()
+            counts = _read_launches("split", ("flash_attention", "fused_geglu_ff",
+                                              "temporal_attention"))
+        with path(unet, False):
+            want = unet(x, t, ctx, video_start_index=0).float()
+        f32 = copy.deepcopy(unet).float()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            with _plain_twins():
+                ref = {}
+                for split in (True, False):
+                    with path(f32, split):
+                        ref[split] = f32(x.float(), t, ctx.float(), video_start_index=0)
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
+        del f32
+    errs = {"bf16": rel(got, want), "f32": rel(ref[True], ref[False]),
+            "split_vs_f32": rel(got, ref[False]), "concat_vs_f32": rel(want, ref[False])}
+    log(f"split: one UNet call of the edit (3 x 16 x 32x48), split-skip vs concat up blocks "
+        f"on the card: bf16 rel L2 {errs['bf16']:.3e} (tol {SPLIT_TOL:g}), float32 through the "
+        f"twins {errs['f32']:.3e} (tol {SPLIT_F32_TOL:g}); against the float32 call, bf16 "
+        f"split-skip {errs['split_vs_f32']:.3e}, concat {errs['concat_vs_f32']:.3e} (tol "
+        f"{UNET_TOL:g}); the edit's calls (batch 3) take the "
+        f"{'split-skip' if uses_split_skip(cfg, 3) else 'concat'} path by default")
+    if not (torch.isfinite(got).all() and errs["bf16"] <= SPLIT_TOL
+            and errs["f32"] <= SPLIT_F32_TOL and errs["split_vs_f32"] <= UNET_TOL
+            and errs["concat_vs_f32"] <= UNET_TOL):
+        raise AssertionError(f"split-skip UNet call disagrees with the concat call: {errs}")
+
+    cpu = copy.deepcopy(unet).to("cpu", torch.float32)
+    cpu.cfg = dataclasses.replace(cfg, split_skip=False)
+    xs, ctxs = torch.randn(1, 2, 32, 32, 8, generator=gen), torch.randn(1, 77, 768, generator=gen)
+    ts = torch.tensor([501])
+    with torch.no_grad():
+        small_ref = cpu(xs, ts, ctxs, video_start_index=4)
+        del cpu
+        with path(unet, True):
+            small = unet(xs.cuda(), ts.cuda(), ctxs.cuda(), video_start_index=4).float().cpu()
+    rel_cpu = rel(small, small_ref)
+    log(f"split: 2x32x32 latent, split-skip GPU bf16 vs concat CPU f32: rel L2 {rel_cpu:.3e} "
+        f"(tol {UNET_TOL:g})")
+    if not (torch.isfinite(small).all() and rel_cpu <= UNET_TOL):
+        raise AssertionError(f"split-skip UNet call disagrees with the CPU: {rel_cpu}")
+
+    _conv1_weight_copies(unet, path, x, t, ctx)
+    profiles = {True: [], False: []}
+    for _ in range(2):
+        for split in (True, False):
+            with path(unet, split):
+                profiles[split].append(_profile_call(
+                    lambda: unet(x, t, ctx, video_start_index=0), "split",
+                    f"one UNet call, {'split-skip' if split else 'concat'} up blocks"))
+    if any(p is None for ps in profiles.values() for p in ps):
+        log("split: a profile recorded no device time; the default's check not measured")
+        return counts
+    for split in (True, False):
+        name = "split-skip" if split else "concat"
+        for key, n, ms in sorted(profiles[split][0]["copies"], key=lambda c: -c[2]):
+            log(f"split: {name} copy kernels {ms:8.3f} ms {n:4d} calls  {key[:100]}")
+    walls = {True: [], False: []}
+    with torch.no_grad():
+        for split in (True, False, False, True):  # in turns: wall per call, host gaps included
+            with path(unet, split):
+                walls[split].append(time_ms(lambda: unet(x, t, ctx, video_start_index=0), 10))
+    log("split: wall ms per call over 10 back to back (CUDA events), in turns: split-skip "
+        + " / ".join(f"{w:.3f}" for w in walls[True]) + ", concat "
+        + " / ".join(f"{w:.3f}" for w in walls[False]))
+    busy = {s: min(p["busy_ms"] for p in ps) for s, ps in profiles.items()}
+    copies = {s: min(p["classes"].get("copies", 0.0) for p in ps) for s, ps in profiles.items()}
+    worse = busy[True] / busy[False] - 1
+    log(f"split: device busy per call, least of 2: split-skip {busy[True]:.3f} ms, concat "
+        f"{busy[False]:.3f} ms ({100 * worse:+.2f} %); copies {copies[True]:.3f} / "
+        f"{copies[False]:.3f} ms: " + (
+            f"the split path is worse by more than {100 * SPLIT_SLOWER:g} %, so its default "
+            "should be off" if worse > SPLIT_SLOWER else
+            f"within {100 * SPLIT_SLOWER:g} % of the concat path or better: the default stays on"))
+    return counts
 
 
 # --- the native loader ---------------------------------------------------------
@@ -1379,22 +1744,19 @@ def _temporal_shapes():
 def _planted(fault, group):
     """A fault planted in this rank's process for the block, to show that a
     gate catches it: ``group_norm`` keeps each across-frame GroupNorm's
-    statistics to this rank's frames (the moments' all-reduce dropped);
+    statistics to this rank's frames (the moments' all-reduce dropped, in
+    ``group_norm`` and in the up blocks' ``group_norm_split_pair`` alike);
     ``ref_delta`` keeps the sampler's sum of the ref frames' deltas to this
     rank's frames (its all-reduce dropped)."""
     from insv2v_torch.ops import norms
 
     if fault == "group_norm":
-        def local_moments(xg, axes, _group):
-            var, mean = torch.var_mean(xg.float(), dim=axes, unbiased=False, keepdim=True)
-            return mean, var
-
-        saved = norms._moments_over_ranks
-        norms._moments_over_ranks = local_moments
+        saved = norms._sum_over_ranks
+        norms._sum_over_ranks = lambda moments, _group: moments
         try:
             yield
         finally:
-            norms._moments_over_ranks = saved
+            norms._sum_over_ranks = saved
     else:  # the ref-delta sum is the one (B, 1, h, w, C) all-reduce
         reduce = group.all_reduce_sum
         group.all_reduce_sum = lambda t: t if t.ndim == 5 else reduce(t)
@@ -1750,8 +2112,8 @@ def phase_dp_cli(args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", default="env,build,parity,unet,edit,flow,profile,variants,grad,"
-                                      "train,loader,loveu,datagen,dp,sp")
+    ap.add_argument("--only", default="env,build,parity,unet,edit,flow,profile,split,variants,"
+                                      "grad,train,loader,loveu,demo,t5,datagen,dp,sp")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -1778,7 +2140,8 @@ def main():
         phase_build()
     if "parity" in phases:
         entries = phase_parity(gen)
-    if {"unet", "edit", "flow", "profile", "variants", "grad", "train", "loader"} & set(phases):
+    if {"unet", "edit", "flow", "profile", "split", "variants", "grad", "train",
+            "loader"} & set(phases):
         from insv2v_torch.utils.factory import build_models
 
         t0 = time.perf_counter()
@@ -1796,6 +2159,8 @@ def main():
             paths["flow"] = phase_flow(models, args, cpu_gen, plain_step)
         if "profile" in phases:
             phase_profile(models, cpu_gen)
+        if "split" in phases:  # before the trainer pins the UNet to the concat path
+            paths["split"] = phase_split(models, cpu_gen)
         if "variants" in phases:
             paths["variants"] = phase_variants(models, cpu_gen)
         if "grad" in phases:
@@ -1807,6 +2172,10 @@ def main():
         del models
     if "loveu" in phases:  # the runner builds its own models
         paths["loveu"] = phase_loveu(cpu_gen)
+    if "demo" in phases:  # so does the demo's editor
+        paths["demo"] = phase_demo(args, cpu_gen)
+    if "t5" in phases:
+        phase_t5(args, cpu_gen)
     if "datagen" in phases:  # the generator builds its own models
         paths["datagen"] = phase_datagen(args, cpu_gen)
     if "dp" in phases:  # one process, then the train CLI as two

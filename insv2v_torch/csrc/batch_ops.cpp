@@ -24,15 +24,17 @@ namespace {
 
 inline float lerp(float a, float b, float t) { return a + (b - a) * t; }
 
-// Bilinear sample from a uint8 HWC image at (y, x), clamped.
+// Bilinear sample from a uint8 HWC image at (y, x), clamped: all four
+// neighbours lie inside the frame, also for a sample more than one pixel
+// left of or above it (a crop window past the frame's left or top edge).
 inline void sample_bilinear(const uint8_t* src, int h, int w, int c,
                             float y, float x, float* out) {
   int x0 = static_cast<int>(std::floor(x));
   int y0 = static_cast<int>(std::floor(y));
   float fx = x - x0;
   float fy = y - y0;
-  int x1 = std::min(x0 + 1, w - 1);
-  int y1 = std::min(y0 + 1, h - 1);
+  int x1 = std::max(std::min(x0 + 1, w - 1), 0);
+  int y1 = std::max(std::min(y0 + 1, h - 1), 0);
   x0 = std::max(std::min(x0, w - 1), 0);
   y0 = std::max(std::min(y0, h - 1), 0);
   const uint8_t* p00 = src + (static_cast<int64_t>(y0) * w + x0) * c;

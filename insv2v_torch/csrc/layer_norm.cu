@@ -84,13 +84,34 @@ layer_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+// With ``grid`` set, no launch: grid = {blocks, threads a block, blocks
+// resident an SM} of the launch these arguments would make.
 template <int NCH>
 cudaError_t launch(const bf16* x, const float* scale, const float* bias, bf16* y, int rows,
-                   int c, float eps, cudaStream_t stream) {
+                   int c, float eps, cudaStream_t stream, int* grid) {
   const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (grid) {
+    grid[0] = blocks;
+    grid[1] = kRowsPerBlock * 32;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&grid[2], layer_norm_kernel<NCH>,
+                                                         kRowsPerBlock * 32, 0);
+  }
   layer_norm_kernel<NCH><<<blocks, kRowsPerBlock * 32, 0, stream>>>(x, scale, bias, y, rows, c,
                                                                      eps);
   return cudaGetLastError();
+}
+
+cudaError_t dispatch(const bf16* x, const float* scale, const float* bias, bf16* y, int rows,
+                     int c, float eps, cudaStream_t stream, int* grid) {
+  if (rows <= 0 || c <= 0 || c % 8 != 0 || c > kMaxWidth) return cudaErrorInvalidValue;
+  switch ((c + 255) / 256) {
+    case 1: return launch<1>(x, scale, bias, y, rows, c, eps, stream, grid);
+    case 2: return launch<2>(x, scale, bias, y, rows, c, eps, stream, grid);
+    case 3: return launch<3>(x, scale, bias, y, rows, c, eps, stream, grid);
+    case 4: return launch<4>(x, scale, bias, y, rows, c, eps, stream, grid);
+    case 5: return launch<5>(x, scale, bias, y, rows, c, eps, stream, grid);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -99,19 +120,15 @@ cudaError_t launch(const bf16* x, const float* scale, const float* bias, bf16* y
 // and 16-byte aligned; c % 8 == 0 and c <= 1280.
 INSV2V_EXPORT int layer_norm_fwd(const void* x, const void* scale, const void* bias, void* y,
                                  int rows, int c, float eps, void* stream) {
-  auto X = static_cast<const bf16*>(x);
-  auto S = static_cast<const float*>(scale);
-  auto B = static_cast<const float*>(bias);
-  auto Y = static_cast<bf16*>(y);
-  auto st = static_cast<cudaStream_t>(stream);
   cudaGetLastError();  // clear an unrelated earlier error of this runtime
-  if (rows <= 0 || c <= 0 || c % 8 != 0 || c > kMaxWidth) return cudaErrorInvalidValue;
-  switch ((c + 255) / 256) {
-    case 1: return launch<1>(X, S, B, Y, rows, c, eps, st);
-    case 2: return launch<2>(X, S, B, Y, rows, c, eps, st);
-    case 3: return launch<3>(X, S, B, Y, rows, c, eps, st);
-    case 4: return launch<4>(X, S, B, Y, rows, c, eps, st);
-    case 5: return launch<5>(X, S, B, Y, rows, c, eps, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch(static_cast<const bf16*>(x), static_cast<const float*>(scale),
+                  static_cast<const float*>(bias), static_cast<bf16*>(y), rows, c, eps,
+                  static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The grid layer_norm_fwd launches for (rows, c), into out[3]: blocks,
+// threads a block, and blocks resident an SM (the occupancy API).
+INSV2V_EXPORT int layer_norm_grid(int rows, int c, int* out) {
+  cudaGetLastError();
+  return dispatch(nullptr, nullptr, nullptr, nullptr, rows, c, 0.0f, nullptr, out);
 }

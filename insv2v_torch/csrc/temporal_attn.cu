@@ -158,30 +158,45 @@ temporal_attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// With ``grid`` set, no launch: grid = {blocks, threads a block, blocks
+// resident an SM} of the launch these arguments would make.
 template <int FP, int EP>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int n, int F,
-                   int heads, int e, float scale, cudaStream_t stream) {
+                   int heads, int e, float scale, cudaStream_t stream, int* grid) {
   using L = TLayout<FP, EP>;
   auto kern = temporal_attn_kernel<FP, EP>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L::bytes));
   if (err != cudaSuccess) return err;
   const int problems = n * heads;
-  kern<<<(problems + kWarps - 1) / kWarps, kWarps * 32, L::bytes, stream>>>(
-      q, k, v, o, problems, F, heads, e, scale * 1.4426950408889634f);
+  const int blocks = (problems + kWarps - 1) / kWarps;
+  if (grid) {
+    grid[0] = blocks;
+    grid[1] = kWarps * 32;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&grid[2], kern, kWarps * 32, L::bytes);
+  }
+  kern<<<blocks, kWarps * 32, L::bytes, stream>>>(q, k, v, o, problems, F, heads, e,
+                                                  scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 template <int FP>
 cudaError_t launch_e(const bf16* q, const bf16* k, const bf16* v, bf16* o, int n, int F,
-                     int heads, int e, float scale, cudaStream_t stream) {
+                     int heads, int e, float scale, cudaStream_t stream, int* grid) {
   switch ((e + 15) / 16 * 16) {
-    case 16: return launch<FP, 16>(q, k, v, o, n, F, heads, e, scale, stream);
-    case 48: return launch<FP, 48>(q, k, v, o, n, F, heads, e, scale, stream);
-    case 80: return launch<FP, 80>(q, k, v, o, n, F, heads, e, scale, stream);
-    case 160: return launch<FP, 160>(q, k, v, o, n, F, heads, e, scale, stream);
+    case 16: return launch<FP, 16>(q, k, v, o, n, F, heads, e, scale, stream, grid);
+    case 48: return launch<FP, 48>(q, k, v, o, n, F, heads, e, scale, stream, grid);
+    case 80: return launch<FP, 80>(q, k, v, o, n, F, heads, e, scale, stream, grid);
+    case 160: return launch<FP, 160>(q, k, v, o, n, F, heads, e, scale, stream, grid);
     default: return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t dispatch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int n, int F,
+                     int heads, int e, float scale, cudaStream_t stream, int* grid) {
+  if (F < 1 || F > 32 || n <= 0 || heads <= 0 || e <= 0 || e % 8) return cudaErrorInvalidValue;
+  return F <= 16 ? launch_e<16>(q, k, v, o, n, F, heads, e, scale, stream, grid)
+                 : launch_e<32>(q, k, v, o, n, F, heads, e, scale, stream, grid);
 }
 
 }  // namespace
@@ -193,12 +208,14 @@ INSV2V_EXPORT int temporal_attn_fwd(const void* q, const void* k, const void* v,
                                     int n, int F, int heads, int e, float scale,
                                     void* stream) {
   cudaGetLastError();
-  if (F < 1 || F > 32 || n <= 0 || heads <= 0 || e <= 0 || e % 8) return cudaErrorInvalidValue;
-  auto Q = static_cast<const bf16*>(q);
-  auto K = static_cast<const bf16*>(k);
-  auto V = static_cast<const bf16*>(v);
-  auto O = static_cast<bf16*>(o);
-  auto st = static_cast<cudaStream_t>(stream);
-  return F <= 16 ? launch_e<16>(Q, K, V, O, n, F, heads, e, scale, st)
-                 : launch_e<32>(Q, K, V, O, n, F, heads, e, scale, st);
+  return dispatch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<bf16*>(o), n, F, heads, e, scale,
+                  static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The grid temporal_attn_fwd launches for these sizes, into out[3]:
+// blocks, threads a block, and blocks resident an SM (the occupancy API).
+INSV2V_EXPORT int temporal_attn_grid(int n, int F, int heads, int e, int* out) {
+  cudaGetLastError();
+  return dispatch(nullptr, nullptr, nullptr, nullptr, n, F, heads, e, 1.0f, nullptr, out);
 }

@@ -16,6 +16,16 @@ self-attention through ``dot_attention`` (kernel A at S >= 256); the
 motion modules' attention over frames through ``temporal_attention``
 (kernel C) on the unpacked per-(pixel, head) F x F form.
 
+Split skip (``INSV2V_SPLIT_SKIP``, the JAX package's switch and default:
+on for calls of at most ``INSV2V_SPLIT_SKIP_MAX_B`` = 3 videos, such as
+the edit's 3x-CFG call): each up-block ResnetBlock3D consumes its skip
+without building ``concat([x, skip], -1)``. That concat feeds only norm1,
+conv1 and conv_shortcut: norm1's statistics compose from per-part moments
+(``ops.norms.group_norm_split_pair``), and a convolution of a channel
+concat is the sum of the convolutions with the kernel sliced along its
+input channels. Same math and the same parameters as the concat path;
+``UNetConfig.split_skip`` overrides the switch.
+
 Frame-sharded (inside ``parallel.dist.frame_parallel``; the JAX package's
 ``INSV2V_SP_AXIS``): each rank holds a contiguous share of the frames; the
 across-frame GroupNorms all-reduce their moments, and each motion module
@@ -28,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -42,11 +53,19 @@ from insv2v_torch.ops.embeddings import (
     timestep_embedding,
 )
 from insv2v_torch.ops.fused_ff import geglu_ff
-from insv2v_torch.ops.norms import group_norm, layer_norm
+from insv2v_torch.ops.norms import group_norm, group_norm_split_pair, layer_norm
 from insv2v_torch.ops.resize import nearest_upsample_2x
 from insv2v_torch.parallel.dist import frame_group
 
-__all__ = ["UNetConfig", "UNet3DConditionModel"]
+__all__ = ["UNetConfig", "UNet3DConditionModel", "uses_split_skip"]
+
+# the split-skip path (module docstring): the JAX package's switches and
+# defaults, read when a call decides (``uses_split_skip``). On by default:
+# on an NVIDIA H100 80GB HBM3 at 700 W one UNet call of the edit is 86.72 ms
+# of device time split, 86.22 ms concat (+0.57 %, within the 1 % that keeps
+# the JAX default; chip_smoke.py's split phase, PERF.md)
+SPLIT_SKIP = os.environ.get("INSV2V_SPLIT_SKIP", "1") == "1"
+SPLIT_SKIP_MAX_B = int(os.environ.get("INSV2V_SPLIT_SKIP_MAX_B", "3"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +98,9 @@ class UNetConfig:
     # recompute each Down/Mid/Up block's activations in the backward
     # instead of keeping them (the JAX package's nn.remat on the blocks)
     remat: bool = False
+    # the up blocks' split-skip path: None follows INSV2V_SPLIT_SKIP (the
+    # trainer's calls pin False, as the JAX trainer does)
+    split_skip: Optional[bool] = None
 
     @property
     def time_embed_dim(self) -> int:
@@ -115,13 +137,17 @@ def _norm(groups: int, c: int, eps: float) -> GroupNorm:
     return GroupNorm(min(groups, c), c, eps=eps)
 
 
-def conv2d_frames(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+def conv2d_frames(conv: nn.Conv2d, x: torch.Tensor, weight: Optional[torch.Tensor] = None,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A 2D conv over (B, F, H, W, C) with (B, F) as one batch axis. The
     NCHW view of the channels-last stream is channels-last in memory, so
-    cuDNN runs NHWC and the result comes back as a view."""
+    cuDNN runs NHWC and the result comes back as a view. ``weight`` (with
+    ``bias``) stands in for the conv's own, with its stride and padding."""
     lead = x.shape[:-3]
     xf = x.reshape((-1,) + x.shape[-3:]).permute(0, 3, 1, 2)
-    y = conv(xf).permute(0, 2, 3, 1)
+    y = conv(xf) if weight is None else F.conv2d(xf, weight, bias, conv.stride, conv.padding,
+                                                conv.dilation, conv.groups)
+    y = y.permute(0, 2, 3, 1)
     return y.reshape(lead + y.shape[1:])
 
 
@@ -310,9 +336,40 @@ class MotionModule(nn.Module):
         return self.temporal_transformer(x, video_start_index)
 
 
+def _kernel_parts(w: torch.Tensor, c1: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A conv kernel sliced along its input channels at ``c1``. cuDNN's
+    channels-last convolution copies a kernel that is not channels-last
+    contiguous at every call, and a slice never is: without gradients the
+    two parts are made channels-last once and kept on the kernel while it
+    is unchanged (``load_state_dict``, an optimizer step or a cast bump its
+    version or move its storage; a write through ``.data`` does neither).
+    On an NVIDIA H100 80GB HBM3 at 700 W the 12 up-block conv1s of one
+    edit UNet call take 4.951 ms of device time on the slices as stored,
+    4.415 on kept ones (chip_smoke.py's split phase)."""
+    if torch.is_grad_enabled() and w.requires_grad:
+        return w[:, :c1], w[:, c1:]
+    key = (w._version, w.data_ptr(), c1)
+    hit = getattr(w, "_split_parts", None)
+    if hit is None or hit[0] != key:
+        cl = torch.channels_last
+        hit = w._split_parts = (key, (w[:, :c1].contiguous(memory_format=cl),
+                                      w[:, c1:].contiguous(memory_format=cl)))
+    return hit[1]
+
+
+def uses_split_skip(cfg: UNetConfig, batch: int, split_skip: Optional[bool] = None) -> bool:
+    """Whether a call of ``batch`` videos takes the split-skip path: the
+    JAX rule, the call's ``split_skip``, else ``cfg.split_skip``, else
+    ``SPLIT_SKIP``, and at most ``SPLIT_SKIP_MAX_B`` videos."""
+    enabled = next((e for e in (split_skip, cfg.split_skip) if e is not None), SPLIT_SKIP)
+    return enabled and batch <= SPLIT_SKIP_MAX_B
+
+
 class ResnetBlock3D(nn.Module):
     """GN (across frames) -> SiLU -> conv -> +temb -> GN -> SiLU -> conv,
-    1x1 shortcut on a channel change."""
+    1x1 shortcut on a channel change. An up block's ``skip`` is
+    concatenated on the channel axis, or with ``split`` consumed part by
+    part (the module docstring's split-skip path)."""
 
     def __init__(self, cin: int, cout: int, temb_dim: int, groups: int, eps: float):
         super().__init__()
@@ -323,7 +380,9 @@ class ResnetBlock3D(nn.Module):
         self.conv2 = nn.Conv2d(cout, cout, 3, padding=1)
         self.conv_shortcut = nn.Conv2d(cin, cout, 1) if cin != cout else None
 
-    def forward(self, x, temb, skip=None):
+    def forward(self, x, temb, skip=None, split: bool = False):
+        if skip is not None and split:
+            return self._split_forward(x, temb, skip)
         if skip is not None:
             x = torch.cat([x, skip], dim=-1)
         h = conv2d_frames(self.conv1, F.silu(self.norm1(x)))
@@ -332,6 +391,23 @@ class ResnetBlock3D(nn.Module):
         if self.conv_shortcut is not None:
             x = linear_1x1(self.conv_shortcut, x)
         return x + h
+
+    def _split_forward(self, x, temb, skip):
+        """The concat path's math on the parts: norm1 from the parts'
+        combined moments, conv1 and conv_shortcut as sums over the parts
+        with their kernels sliced along the input channels (bias once)."""
+        c1 = x.shape[-1]
+        assert self.conv_shortcut is not None, "the split path expects a channel change"
+        norm1 = self.norm1
+        xn, sn = group_norm_split_pair(x, skip, norm1.weight, norm1.bias, norm1.num_groups,
+                                       norm1.eps, group=frame_group())
+        wx, ws = _kernel_parts(self.conv1.weight, c1)
+        h = (conv2d_frames(self.conv1, F.silu(xn), wx, self.conv1.bias)
+             + conv2d_frames(self.conv1, F.silu(sn), ws))
+        h = h + self.time_emb_proj(F.silu(temb))[:, None, None, None, :]
+        h = conv2d_frames(self.conv2, F.silu(self.norm2(h)))
+        w1 = self.conv_shortcut.weight.reshape(self.conv_shortcut.weight.shape[:2])
+        return F.linear(x, w1[:, :c1], self.conv_shortcut.bias) + F.linear(skip, w1[:, c1:]) + h
 
 
 class Downsample3D(nn.Module):
@@ -426,10 +502,10 @@ class UpBlock3D(nn.Module):
             [MotionModule(cout, cfg) for _ in range(n)]) if motion else None
         self.upsamplers = nn.ModuleList([Upsample3D(cout)]) if upsample else None
 
-    def forward(self, x, skips, temb, context, video_start_index):
+    def forward(self, x, skips, temb, context, video_start_index, split: bool = False):
         skips = list(skips)
         for i, resnet in enumerate(self.resnets):
-            x = resnet(x, temb, skip=skips.pop())
+            x = resnet(x, temb, skip=skips.pop(), split=split)
             if self.attentions is not None:
                 x = self.attentions[i](x, context)
             if self.motion_modules is not None:
@@ -442,7 +518,8 @@ class UpBlock3D(nn.Module):
 class UNet3DConditionModel(nn.Module):
     """sample (B, F, H, W, C_in), timesteps (B,) or scalar, context
     (B, L, D_text), window start index -> eps (B, F, H, W, C_out), in the
-    parameters' dtype."""
+    parameters' dtype. A call's ``split_skip`` overrides
+    ``cfg.split_skip``."""
 
     def __init__(self, cfg: UNetConfig = UNetConfig()):
         super().__init__()
@@ -479,7 +556,8 @@ class UNet3DConditionModel(nn.Module):
             return checkpoint(blk, *args, use_reentrant=False)
         return blk(*args)
 
-    def forward(self, sample, timesteps, encoder_hidden_states, video_start_index: int = 0):
+    def forward(self, sample, timesteps, encoder_hidden_states, video_start_index: int = 0,
+                split_skip: Optional[bool] = None):
         cfg = self.cfg
         dt = self.conv_in.weight.dtype
         if not torch.is_tensor(timesteps) or timesteps.ndim == 0:
@@ -495,9 +573,10 @@ class UNet3DConditionModel(nn.Module):
             skips.extend(states)
         x = self._block(self.mid_block, x, temb, context, video_start_index)
         n_res = cfg.layers_per_block + 1
+        split = uses_split_skip(cfg, x.shape[0], split_skip)
         for blk in self.up_blocks:
             block_skips = skips[-n_res:]
             del skips[-n_res:]
-            x = self._block(blk, x, block_skips, temb, context, video_start_index)
+            x = self._block(blk, x, block_skips, temb, context, video_start_index, split)
         x = F.silu(self.conv_norm_out(x))
         return conv2d_frames(self.conv_out, x)

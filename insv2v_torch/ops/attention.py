@@ -194,6 +194,17 @@ def _launch_temporal(q, k, v, scale: float):
     return o
 
 
+def temporal_grid(b: int, p: int, f: int, heads: int, e: int) -> dict:
+    """The grid that kernel C launches at (B, P, F, heads, e) on the current
+    CUDA device: ``blocks`` of ``threads`` (one warp a (pixel, head)
+    problem) and the blocks ``resident`` an SM (the occupancy API)."""
+    out = (ctypes.c_int * 3)()
+    status = build.load("temporal_attn").temporal_attn_grid(
+        *(ctypes.c_int(x) for x in (b * p, f, heads, e)), out)
+    build.check("temporal_attn", status)
+    return {"blocks": out[0], "threads": out[1], "resident": out[2]}
+
+
 def temporal_attention(q, k, v, scale: Optional[float] = None):
     """Per-(pixel, head) attention over frames through kernel C.
     q/k/v (B, P, F, heads, e); F <= 32. Differentiable: the backward

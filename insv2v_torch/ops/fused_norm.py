@@ -21,7 +21,7 @@ import torch
 from insv2v_torch.kernels import build
 from insv2v_torch.ops.recompute import KernelGrad
 
-__all__ = ["fused_layer_norm", "fused_layer_norm_reference"]
+__all__ = ["fused_layer_norm", "fused_layer_norm_reference", "layer_norm_grid"]
 
 LN_MAX_WIDTH = 1280  # the widest row kernel D keeps in one warp's registers
 
@@ -61,6 +61,16 @@ def _launch_ln(x, scale, bias, eps: float):
     build.check("layer_norm", status)
     fused_layer_norm.launches += 1
     return y
+
+
+def layer_norm_grid(rows: int, c: int) -> dict:
+    """The grid that kernel D launches at (rows, C) on the current CUDA
+    device: ``blocks`` of ``threads`` (one warp a row) and the blocks
+    ``resident`` an SM (the occupancy API)."""
+    out = (ctypes.c_int * 3)()
+    status = build.load("layer_norm").layer_norm_grid(ctypes.c_int(rows), ctypes.c_int(c), out)
+    build.check("layer_norm", status)
+    return {"blocks": out[0], "threads": out[1], "resident": out[2]}
 
 
 def fused_layer_norm(x, scale, bias, eps: float = 1e-5):

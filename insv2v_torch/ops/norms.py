@@ -12,20 +12,23 @@ Statistics accumulate in float32 whatever the activation dtype, and the
 affine output is computed in float32 and rounded once to the input dtype.
 With a frame group (``parallel.dist.frame_parallel``), GroupNorm's
 statistics over the sharded frame axis come from every rank's moments.
+
+``group_norm_split_pair`` is the GroupNorm of a channel concat that is
+never built: the up blocks' split-skip path (``models/unet3d.py``).
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from insv2v_torch.ops.fused_norm import fused_layer_norm
 
-__all__ = ["group_norm", "layer_norm", "FUSED_LAYER_NORM"]
+__all__ = ["group_norm", "group_norm_split_pair", "layer_norm", "FUSED_LAYER_NORM"]
 
 # layer_norm's default: kernel D when on; the JAX package's switch and
 # default (INSV2V_PALLAS_NORM, off)
@@ -66,17 +69,82 @@ def group_norm(
     return torch.addcmul(b, xg, a, out=torch.empty_like(xg)).reshape(x.shape)
 
 
+def _sum_over_ranks(moments: torch.Tensor, group) -> torch.Tensor:
+    """The float64 ``moments`` (sums, sums of squares, count) summed over
+    ``group``'s ranks: the one all-reduce of a sharded GroupNorm."""
+    return group.all_reduce_sum(moments)
+
+
 def _moments_over_ranks(xg, axes, group):
     """(mean, var) in float32 over ``axes`` of every rank's ``xg``."""
     xd = xg.double()
     count = torch.full((1,), float(math.prod(xg.shape[a] for a in axes)), dtype=torch.float64,
                        device=xg.device)
     s1, s2 = xd.sum(dim=axes, keepdim=True), xd.square().sum(dim=axes, keepdim=True)
-    moments = group.all_reduce_sum(torch.cat([s1.reshape(-1), s2.reshape(-1), count]))
+    moments = _sum_over_ranks(torch.cat([s1.reshape(-1), s2.reshape(-1), count]), group)
     n = moments[-1]
     mean = moments[:s1.numel()].reshape(s1.shape) / n
     var = (moments[s1.numel():-1].reshape(s1.shape) / n - mean * mean).clamp_min(0.0)
     return mean.float(), var.float()
+
+
+def group_norm_split_pair(
+    x: torch.Tensor,
+    skip: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    num_groups: int = 32,
+    eps: float = 1e-6,
+    group=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GroupNorm of the virtual ``concat([x, skip], -1)``, without building
+    the concat: ``(x_n, skip_n)``, each in its own dtype.
+
+    Per-part channel sums and sums of squares over every axis but the batch
+    axis 0 and the channel axis (the across-frames statistics of
+    ``ResnetBlock3D``), in float32, are combined into per-group statistics
+    with the one-pass variance ``E[x^2] - mean^2`` clamped at 0 (the
+    two-pass form cannot compose across the parts). Groups may straddle
+    the boundary between the parts (1280 + 640 channels in 32 groups of
+    60). The affine is folded into one per-channel scale and offset, and
+    each part is written in one float32 pass rounded to its dtype.
+
+    ``group``: a ``parallel.dist.Group`` over whose ranks the frame axis is
+    sharded; both parts' moments and the count then go through one
+    all-reduce in float64."""
+    assert x.shape[:-1] == skip.shape[:-1], (x.shape, skip.shape)
+    c1, c2 = x.shape[-1], skip.shape[-1]
+    ct = c1 + c2
+    assert ct % num_groups == 0, f"channels {ct} not divisible by groups {num_groups}"
+    gs = ct // num_groups
+    red = tuple(range(1, x.ndim - 1))
+    b = x.shape[0]
+    acc = torch.float32 if group is None else torch.float64
+    # per-channel sums and sums of squares (squared 2-norms) of each part
+    s = torch.cat([torch.sum(p, dim=red, dtype=acc) for p in (x, skip)], -1)
+    q = torch.cat([torch.linalg.vector_norm(p, dim=red, dtype=acc).square()
+                   for p in (x, skip)], -1)
+    n = float(gs * math.prod(x.shape[a] for a in red))
+    if group is not None:
+        moments = _sum_over_ranks(torch.cat([s.reshape(-1), q.reshape(-1), s.new_full((1,), n)]),
+                                  group)
+        s, q, n = moments[:b * ct], moments[b * ct:-1], moments[-1]
+    s, q = s.reshape(b, num_groups, gs).sum(-1), q.reshape(b, num_groups, gs).sum(-1)
+    mean = s / n
+    var = (q / n - mean * mean).clamp_min(0.0)
+    inv = torch.rsqrt(var.float() + eps).repeat_interleave(gs, dim=-1)  # (B, C_total)
+    # out = p * sc + off, with sc = inv * scale and off = bias - mean * sc
+    sc = inv * scale.float()
+    off = bias.float() - mean.float().repeat_interleave(gs, dim=-1) * sc
+    bshape = (b,) + (1,) * len(red)
+
+    def apply(p, lo, hi):
+        a, o = sc[:, lo:hi].reshape(bshape + (hi - lo,)), off[:, lo:hi].reshape(bshape + (hi - lo,))
+        if torch.is_grad_enabled() and (p.requires_grad or a.requires_grad):
+            return torch.addcmul(o, p, a).to(p.dtype)
+        return torch.addcmul(o, p, a, out=torch.empty_like(p))
+
+    return apply(x, 0, c1), apply(skip, c1, ct)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

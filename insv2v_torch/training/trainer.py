@@ -32,11 +32,13 @@ ranks would move its block boundaries, and so its numbers.
 ``TrainConfig.compute_dtype`` runs the step under autocast, for a model
 stored in float32 and computed in bf16 (the JAX CLI's ``--frozen-f32``).
 
-The JAX trainer forces its UNet's split-skip up-block path off; the port
-has only the concat path. Randomness: the five draws of a microbatch (the
-two posterior normals ``enc_cond`` and ``enc_edit``, the cond-drop mask
-``drop``, ``eps`` and ``t``) come from a ``torch.Generator`` or are handed
-in through ``draws``, so a test can replay a JAX run's draws.
+The trainer's UNet calls take the concat up-block path
+(``split_skip=False``), as the JAX trainer pins it; the split-skip path
+is the inference default and computes the same function. Randomness: the
+five draws of a microbatch (the two posterior normals ``enc_cond`` and
+``enc_edit``, the cond-drop mask ``drop``, ``eps`` and ``t``) come from a
+``torch.Generator`` or are handed in through ``draws``, so a test can
+replay a JAX run's draws.
 """
 
 from __future__ import annotations
@@ -211,7 +213,7 @@ class Trainer:
                                                 generator=generator, device=dev))
             sample = torch.cat([add_noise(self.schedule, x0, eps, t), cond], dim=-1)
         with self.compute():
-            pred = self.unet(sample, t, text_emb)
+            pred = self.unet(sample, t, text_emb, split_skip=False)
         target = eps if cfg.prediction_type == "epsilon" else x0
         return _loss(pred, target, cfg.loss_type)
 

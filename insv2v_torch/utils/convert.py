@@ -4,10 +4,12 @@ packages (and the JAX package's own trees can be served by the port).
 
 ``torch_state_dict_from_flax(tree, kind)`` for ``kind`` in
 {"unet3d", "vae", "clip_text", "raft", "clip_model", "unet_sd",
-"openclip_text"} undoes ``convert_unet3d_state_dict``,
-``convert_vae_state_dict``, ``convert_clip_text_state_dict``,
-``convert_raft_state_dict``, ``convert_clip_model_state_dict``,
-``convert_unet_sd_state_dict`` and ``convert_openclip_text_state_dict``:
+"openclip_text", "t5", "class_embedder"} undoes
+``convert_unet3d_state_dict``, ``convert_vae_state_dict``,
+``convert_clip_text_state_dict``, ``convert_raft_state_dict``,
+``convert_clip_model_state_dict``, ``convert_unet_sd_state_dict``,
+``convert_openclip_text_state_dict`` and ``convert_t5_state_dict`` (a
+``ClassEmbedder``'s tree is its one ``embedding`` table):
 
   * conv ``kernel`` (kh, kw, I, O) -> ``weight`` (O, I, kh, kw)
   * dense ``kernel`` (I, O)        -> ``weight`` (O, I)
@@ -29,7 +31,13 @@ packages (and the JAX package's own trees can be served by the port).
     Conv1d (O, I, 1); ``temporal_conv`` -> ``temopral_conv`` (sic);
   * open_clip's text tower: q/k/v packed back into ``attn.in_proj_weight``
     / ``in_proj_bias``, ``resblocks_N`` -> ``transformer.resblocks.N``,
-    ``c_fc`` / ``c_proj`` under ``mlp``.
+    ``c_fc`` / ``c_proj`` under ``mlp``;
+  * T5: HF ``T5EncoderModel``'s keys (``block_N/attn/q`` ->
+    ``encoder.block.N.layer.0.SelfAttention.q``, ``ln_attn`` / ``ln_ff``
+    -> ``layer.{0,1}.layer_norm``, ``wi_0`` / ``wi_1`` / ``wo`` under
+    ``layer.1.DenseReluDense``, the shared bias table under block 0's
+    attention), with the tied ``encoder.embed_tokens.weight`` beside
+    ``shared.weight``.
 """
 
 from __future__ import annotations
@@ -167,8 +175,28 @@ def _clip_module(parts: List[str]) -> List[str]:
     return out
 
 
+def _t5_module(parts: List[str]) -> List[str]:
+    head = parts[0]
+    if head == "shared":
+        return ["shared", "weight"]
+    if head == "relative_attention_bias":
+        return ["encoder", "block", "0", "layer", "0", "SelfAttention", head, "weight"]
+    if head == "final_layer_norm":
+        return ["encoder", "final_layer_norm", "weight"]
+    m = re.match(r"^block_(\d+)$", head)
+    assert m, f"unexpected T5 path {parts}"
+    out = ["encoder", "block", m.group(1), "layer"]
+    sub = parts[1]
+    if sub in ("ln_attn", "ln_ff"):
+        return out + ["0" if sub == "ln_attn" else "1", "layer_norm", parts[-1]]
+    if sub == "attn":
+        return out + ["0", "SelfAttention"] + parts[2:]
+    return out + ["1", "DenseReluDense"] + parts[1:]  # wi_0, wi_1, wo
+
+
 _MODULE_RULES = {"unet3d": _unet_module, "vae": _vae_module, "clip_text": _clip_module,
-                 "raft": _raft_module, "clip_model": _clip_model_module}
+                 "raft": _raft_module, "clip_model": _clip_model_module, "t5": _t5_module,
+                 "class_embedder": list}
 
 
 def _unet_sd_index_map(cfg) -> Dict[str, str]:
@@ -287,4 +315,6 @@ def torch_state_dict_from_flax(params: Mapping[str, Any], kind: str,
     if kind == "raft":
         sd.update({k.replace(".norm3.", ".downsample.1."): v for k, v in sd.items()
                    if ".norm3." in k})
+    if kind == "t5":
+        sd["encoder.embed_tokens.weight"] = sd["shared.weight"]
     return sd

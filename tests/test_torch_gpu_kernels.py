@@ -217,3 +217,54 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         tln.fused_layer_norm(z(4, 1288), z(1288), z(1288))
     with pytest.raises(TypeError):
         tln.fused_layer_norm(z(4, 320).float(), z(320), z(320))
+
+
+def test_unet_split_skip_path_matches_concat_path_through_the_kernels(cuda, monkeypatch):
+    """The up blocks' split-skip path against the concat path on the card:
+    the smallest UNet whose widths the kernels take (the full widths, one
+    resnet a down block), batch 3 (the edit's CFG batch) of 4 frames of
+    32x48 latents, the same weights. In bf16 both calls launch A, B and C
+    and differ by bf16 roundings only: 2.5e-2 relative L2, twice one call's
+    bf16 error against float32 (chip_smoke.py's SPLIT_TOL). In float32,
+    through the kernels' plain twins with TF32 off, they agree to 1e-4."""
+    import dataclasses
+
+    from insv2v_torch.models import unet3d
+    from insv2v_torch.models.unet3d import UNet3DConditionModel, UNetConfig
+
+    torch.manual_seed(0)
+    with torch.device(cuda):
+        model = UNet3DConditionModel(UNetConfig(layers_per_block=1)).eval()
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "temporal_transformer.proj_out" in name:  # zero at init: wake it
+                p.normal_(0.0, 0.02)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn(3, 4, 32, 48, 8, generator=g, device=cuda)
+    ctx = torch.randn(3, 77, 768, generator=g, device=cuda)
+    t = torch.tensor([300, 500, 700], device=cuda)
+    kernels = (tattn.flash_attention, tff.fused_geglu_ff, tattn.temporal_attention)
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def call(split, dtype):
+        model.cfg = dataclasses.replace(model.cfg, split_skip=split)
+        with torch.no_grad():
+            return model.to(dtype)(x.to(dtype), t, ctx.to(dtype), video_start_index=2)
+
+    outs = {}
+    for split in (True, False):
+        before = [k.launches for k in kernels]
+        outs[split] = call(split, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert all(k.launches > b for k, b in zip(kernels, before)), split
+    assert torch.isfinite(outs[True]).all()
+    assert rel(outs[True], outs[False]) <= 2.5e-2, rel(outs[True], outs[False])
+
+    monkeypatch.setattr(tattn, "flash_attention", lambda q, k, v, scale=None, headfold=None:
+                        tattn.flash_attention_reference(q, k, v, scale))
+    monkeypatch.setattr(unet3d, "temporal_attention", tattn.temporal_attention_reference)
+    monkeypatch.setattr(unet3d, "geglu_ff", tff.geglu_ff_reference)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    f32 = {split: call(split, torch.float32) for split in (True, False)}
+    assert rel(f32[True], f32[False]) <= 1e-4, rel(f32[True], f32[False])

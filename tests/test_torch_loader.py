@@ -56,7 +56,9 @@ def frames(n=6, h=24, w=20, c=3, seed=0):
 
 
 def crops(n, h, w, seed=1):
-    """Crops inside the frame (the C++ loop reads out of bounds otherwise)."""
+    """Crops inside the frame: there the port's native op and the JAX
+    package's build the same bytes (the JAX package's C++ loop reads out of
+    bounds for a window past the frame's left or top edge)."""
     rs = np.random.RandomState(seed)
     ch = rs.randint(h // 2, h + 1, n).astype(np.int32)
     cw = rs.randint(w // 2, w + 1, n).astype(np.int32)
@@ -99,6 +101,27 @@ def test_native_ops_match_plain_twins(op, tol):
     got, want = call(True), call(False)
     assert got.dtype == want.dtype == np.float32 and got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=tol)
+
+
+@pytest.mark.parametrize("edge", ["left", "top", "both"])
+def test_off_frame_crops_match_the_twin(edge):
+    """Crop windows reaching several pixels past the frame's left or top
+    edge: every bilinear neighbour is clamped into the frame, in the native
+    op as in its twin (1e-5)."""
+    n, h, w = 4, 30, 26
+    u8 = frames(n=n, h=h, w=w, seed=7)
+    rs = np.random.RandomState(8)
+    ch = rs.randint(h // 2, h + 1, n).astype(np.int32)
+    cw = rs.randint(w // 2, w + 1, n).astype(np.int32)
+    cx = (cw / 2 + rs.rand(n) * (w - cw)).astype(np.float32)
+    cy = (ch / 2 + rs.rand(n) * (h - ch)).astype(np.float32)
+    if edge in ("left", "both"):  # windows starting 3 to 9 pixels left of the frame
+        cx = (cw / 2 - rs.uniform(3, 9, n)).astype(np.float32)
+    if edge in ("top", "both"):
+        cy = (ch / 2 - rs.uniform(3, 9, n)).astype(np.float32)
+    got = nl.crop_resize_normalize(u8, cx, cy, ch, cw)
+    want = nl.crop_resize_normalize(u8, cx, cy, ch, cw, native=False)
+    np.testing.assert_allclose(got, want, atol=1e-5)
 
 
 def test_twins_follow_cv2_and_the_identity_crop():
