@@ -102,10 +102,16 @@ FF_SHAPES = [(73728, 320), (18432, 640), (4608, 1280), (1152, 1280),
              (16384, 320), (4096, 640), (1024, 1280), (256, 1280),
              (110592, 320), (27648, 640), (6912, 1280), (1728, 1280)]
 # kernel C: (B, P, F, heads, e) of the motion modules at levels 0..3, the
-# edit's (32x48 latents), then the LOVEU runner's (48x48)
+# edit's (32x48 latents), the LOVEU runner's (48x48), training's (one
+# 16-frame video of 32x32 latents) and an sp rank's (the edit's, half the
+# pixels after the all-to-all)
 TEMPORAL_SHAPES = [(3, 1536, 16, 8, 40), (3, 384, 16, 8, 80), (3, 96, 16, 8, 160),
                    (3, 24, 16, 8, 160), (3, 2304, 16, 8, 40), (3, 576, 16, 8, 80),
-                   (3, 144, 16, 8, 160), (3, 36, 16, 8, 160)]
+                   (3, 144, 16, 8, 160), (3, 36, 16, 8, 160),
+                   (1, 1024, 16, 8, 40), (1, 256, 16, 8, 80), (1, 64, 16, 8, 160),
+                   (1, 16, 16, 8, 160),
+                   (3, 768, 16, 8, 40), (3, 192, 16, 8, 80), (3, 48, 16, 8, 160),
+                   (3, 12, 16, 8, 160)]
 # kernel D: (rows, C) of the UNet's LayerNorms at 48 frames of 32x48 and
 # of CLIP's (48 prompts of 77 tokens)
 LN_SHAPES = [(73728, 320), (18432, 640), (4608, 1280), (48 * 77, 768)]
@@ -255,7 +261,7 @@ def _report(name, shape, err, kernel, plain, library, iters, bms, by):
     lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
     log(f"parity {name} {shape}: max_abs_err {err:.3e} (tol {tol:g}) "
         f"kernel {ms:.4f} ms (events {event_ms:.4f}), plain {plain_ms:.4f} ms, "
-        f"library {lib} ms, bound {bms:.4f} ms ({by})")
+        f"library {lib} ms, bound {bms:.4f} ms ({by}), {100 * bms / ms:.1f} % of the bound")
     return {"shape": list(shape), "max_abs_err": err, "ms": ms, "event_ms": event_ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
             "ms_source": {"ms": ms_clock, "plain_ms": plain_clock, "library_ms": lib_clock}}
@@ -263,11 +269,15 @@ def _report(name, shape, err, kernel, plain, library, iters, bms, by):
 
 def _log_grid(name, shape, grid):
     """A kernel's grid (blocks, threads, blocks resident an SM) and the
-    waves it takes on this card's SMs."""
+    waves it takes on this card's SMs; for a persistent grid (``units``)
+    the work units and how many a block walks."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     waves = grid["blocks"] / (grid["resident"] * sms) if grid["resident"] else float("nan")
+    units = ("" if "units" not in grid else
+             f", {grid['units']} units of {grid['heads_per_unit']} heads, "
+             f"{grid['units'] / grid['blocks']:.2f} a block")
     log(f"grid {name} {shape}: blocks {grid['blocks']} of {grid['threads']} threads, "
-        f"{grid['resident']} resident an SM, {waves:.2f} waves on {sms} SMs")
+        f"{grid['resident']} resident an SM, {waves:.2f} waves on {sms} SMs{units}")
 
 
 def phase_parity(gen):
@@ -299,8 +309,9 @@ def phase_parity(gen):
         rows.append(_report("flash_attention", shape, err, lambda: flash_attention(q, k, v),
                             lambda: flash_attention_reference(q, k, v),
                             lambda: F.scaled_dot_product_attention(q, k, v), 10, bms, by))
+        rows[-1]["grid"] = flash_grid(*shape, headfold=False)
         log(f"grid flash_attention {shape}: " + ", ".join(
-            f"{key} {val}" for key, val in flash_grid(*shape, headfold=False).items()))
+            f"{key} {val}" for key, val in rows[-1]["grid"].items()))
         del q, k, v, out, ref
     entries.append(_entry("flash_attention", "insv2v_torch/csrc/flash_attn.cu",
                           "insv2v_tpu/ops/attention.py:95", rows))
@@ -317,8 +328,9 @@ def phase_parity(gen):
                             lambda: flash_attention_headfold(q, k, v),
                             lambda: flash_attention_reference(q, k, v),
                             lambda: F.scaled_dot_product_attention(q, k, v), 10, bms, by))
+        rows[-1]["grid"] = flash_grid(*shape, headfold=True)
         log(f"grid flash_attention_headfold {shape}: " + ", ".join(
-            f"{key} {val}" for key, val in flash_grid(*shape, headfold=True).items()))
+            f"{key} {val}" for key, val in rows[-1]["grid"].items()))
         del q, k, v, out, ref
     entries.append(_entry("flash_attention_headfold", "insv2v_torch/csrc/flash_attn.cu",
                           "insv2v_tpu/ops/attention.py:131", rows))
@@ -365,7 +377,8 @@ def phase_parity(gen):
         rows.append(_report("temporal_attention", shape, err, lambda: temporal_attention(q, k, v),
                             lambda: temporal_attention_reference(q, k, v),
                             lambda: F.scaled_dot_product_attention(qs, ks, vs), 20, bms, by))
-        _log_grid("temporal_attention", shape, temporal_grid(*shape))
+        rows[-1]["grid"] = temporal_grid(*shape)
+        _log_grid("temporal_attention", shape, rows[-1]["grid"])
     entries.append(_entry("temporal_attention", "insv2v_torch/csrc/temporal_attn.cu",
                           "insv2v_tpu/ops/attention.py:345", rows))
 

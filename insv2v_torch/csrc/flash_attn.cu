@@ -27,11 +27,11 @@
 // the row sum and writes bf16 straight from registers. The producer gives
 // registers to the consumers (setmaxnreg).
 //
-//  * d = 40, 64 and 80 (kernels A and A'): 64-key tiles in a 3- or 4-stage
+//  * d = 40 and 80 (kernels A and A'): 64-key tiles in a 3- or 4-stage
 //    ring. Operands are TMA boxes of 64 columns in the 128-byte swizzle,
 //    zero past column d (TMA's out-of-bound fill: nothing is padded in
-//    device memory), so Q K^T contracts over 48, 64 or 80 and P V is
-//    m64n48, m64n64 or m64n80 (part of a swizzle atom, one atom at d = 64). Each warpgroup pipelines its tiles:
+//    device memory), so Q K^T contracts over 48 or 80 and P V is m64n48 or
+//    m64n80 (part of a swizzle atom). Each warpgroup pipelines its tiles:
 //    Q K^T of tile t + 1 and P V of tile t are in flight while the softmax
 //    of tile t + 1 runs. The warpgroups of a block share one K/V ring (one
 //    head, query rows 64 apart), so a K/V tile crosses from L2 once per 128
@@ -44,6 +44,16 @@
 //    it gives each of two warpgroups its own ring and heads w, w + 2, ...
 //    over 64-query blocks. One item runs the same instructions in every
 //    variant, so A' equals A bit for bit.
+//  * d = 64 (ModelScope's UNetSD, kernels A and A'; flash_fwd64_kernel): a
+//    body of its own on the same pipeline. Work items of 128 query rows (two
+//    warpgroups), which divide ModelScope's S = 1024 and 256 where the d = 40
+//    body's 192 left 12.5 % and 50 % of the rows on TMA's zero fill;
+//    and 128-key tiles (one 16 KB box each for K and V, four stages), which
+//    halve the barriers, max and rescale steps and wgmma batches per key.
+//    One P fragment buffer (P of tile t + 1 is packed once P V of tile t
+//    has read the registers) keeps a consumer thread in the 168 registers
+//    of a block with a producer warp. A' walks a batch's heads with the same
+//    item body, split over as many blocks as fill the SMs once.
 //  * d = 512 (VAE): O (64 x 512 f32) does not fit one warpgroup's registers.
 //    The two warpgroups share the block's 64 query rows, each owning 256
 //    columns of O (128 accumulators a thread); Q K^T is split over the
@@ -166,7 +176,7 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ o, const float (&a
   }
 }
 
-// --- d = 40, 64 and 80 ----------------------------------------------------------
+// --- d = 40 and 80 ----------------------------------------------------------
 
 template <int DP, int NWG, bool SPLIT>
 struct Narrow {
@@ -385,6 +395,181 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// --- d = 64 (ModelScope's UNetSD) --------------------------------------------------
+
+// Two consumer warpgroups of 64 query rows share a work item of 128 rows
+// (ModelScope's S = 1024 and 256 are multiples: no query row is computed on
+// TMA's zero fill there) and one ring of 128-key K/V tiles (16 KB a tile at
+// d = 64, four stages). A 128-key tile halves the barriers, max and rescale
+// steps and wgmma batches per key against 64-key tiles. A consumer thread
+// holds 64 S, 32 O and 32 P fragment registers while its wgmmas are in
+// flight, inside the 168 that ptxas gives a thread of a block with three
+// warps on some SM sub-partition (setmaxnreg notwithstanding). The producer
+// is one warp.
+struct D64 {
+  static constexpr int DP = 64, BK = 128, NWG = 2, ST = 4, QS = 2;
+  static constexpr int ROWS = NWG * kBM;  // query rows of a work item
+  static constexpr int Q_BYTES = kBM * 128, KV_BYTES = BK * 128;
+  static constexpr int QREGION = NWG * QS * Q_BYTES;
+  static constexpr size_t bytes = 1024 + (size_t)QREGION + 2 * ST * KV_BYTES;
+  static constexpr int THREADS = NWG * 128 + 32;
+  static_assert(ST <= kMaxStages && bytes + NWG * sizeof(Stream) <= 232448, "shared memory");
+  __device__ static unsigned char* q_slot(unsigned char* smem, int w, int qs) {
+    return smem + (w * QS + qs) * Q_BYTES;
+  }
+  __device__ static unsigned char* k_tile(unsigned char* smem, int st) {
+    return smem + QREGION + st * KV_BYTES;
+  }
+  __device__ static unsigned char* v_tile(unsigned char* smem, int st) {
+    return smem + QREGION + (ST + st) * KV_BYTES;
+  }
+};
+
+// Work item i of a d = 64 block: (batch*head, first query row of the
+// item), or false past its last. Kernel A is persistent over the (batch*head,
+// 128-row query block) items; kernel A' walks heads z, z + gridDim.z, ... of
+// batch y at query block x.
+template <bool HEADFOLD>
+__device__ __forceinline__ bool work_item64(int i, int heads, int sq, int& bh, int& q0) {
+  if (!HEADFOLD) {
+    const int blocks = (sq + D64::ROWS - 1) / D64::ROWS;
+    const int item = blockIdx.x + i * gridDim.x;
+    bh = item / blocks;
+    q0 = (item % blocks) * D64::ROWS;
+    return item < heads * blocks;
+  }
+  const int h = blockIdx.z + i * gridDim.z;
+  bh = blockIdx.y * heads + h;
+  q0 = blockIdx.x * D64::ROWS;
+  return h < heads;
+}
+
+// The kernel A body of d = 40/80 (Q K^T of tile t + 1 and P V of tile t in
+// flight together while the softmax of tile t + 1 runs; the same online
+// softmax) on D64's tiles. An item runs the same instructions in A and A',
+// which stay equal bit for bit.
+template <bool HEADFOLD>
+__global__ void __launch_bounds__(D64::THREADS, 1)
+flash_fwd64_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o, int heads,
+                   int sq, int sk, int d, float scale_log2) {
+  using L = D64;
+  constexpr int BK = L::BK, DP = L::DP;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ Stream bars[L::NWG];  // Q barriers of warpgroup w; bars[0] also the ring's
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int ntiles = (sk + BK - 1) / BK;
+
+  if (tid == 0) {
+    for (int w = 0; w < L::NWG; ++w) init_stream(bars[w], L::NWG);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * L::NWG) {
+    // ---- producer warp: one thread streams both warpgroups' Q, then K and V ----
+    if (lane == 0) {
+      Stream& b = bars[0];
+      int bh, q0, g = 0;
+      for (int i = 0; work_item64<HEADFOLD>(i, heads, sq, bh, q0); ++i) {
+        const int qs = i % L::QS;
+        for (int w = 0; w < L::NWG; ++w) {
+          Stream& bq = bars[w];
+          mbar_wait(&bq.qempty[qs], ((i / L::QS) & 1) ^ 1);
+          mbar_expect_tx(&bq.qfull[qs], L::Q_BYTES);
+          tma_load_3d(L::q_slot(smem, w, qs), &map_q, 0, q0 + w * kBM, bh, &bq.qfull[qs]);
+        }
+        for (int t = 0; t < ntiles; ++t, ++g) {
+          const int st = g % L::ST;
+          const uint32_t par = ((g / L::ST) & 1) ^ 1;
+          mbar_wait(&b.kempty[st], par);
+          mbar_expect_tx(&b.kfull[st], L::KV_BYTES);
+          tma_load_3d(L::k_tile(smem, st), &map_k, 0, t * BK, bh, &b.kfull[st]);
+          mbar_wait(&b.vempty[st], par);
+          mbar_expect_tx(&b.vfull[st], L::KV_BYTES);
+          tma_load_3d(L::v_tile(smem, st), &map_v, 0, t * BK, bh, &b.vfull[st]);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroup w: query rows q0 + 64 w of each item ----
+    const int w = warp / 4, wl = warp % 4, wtid = tid % 128;
+    Stream& bq = bars[w];
+    Stream& b = bars[0];
+    auto qk = [&](float (&s)[BK / 2], const unsigned char* sQ, int g) {
+      const unsigned char* sK = L::k_tile(smem, g % L::ST);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)  // k16 steps inside one 128-byte row
+        WgmmaSS<BK>::run(s, gmma_desc(sQ + kk * 32, 1, 1024), gmma_desc(sK + kk * 32, 1, 1024),
+                         kk > 0);
+      wgmma_commit();
+    };
+    auto pv = [&](float (&acc)[DP / 2], const uint32_t (&pa)[BK / 16][4], int g) {
+      const unsigned char* sV = L::v_tile(smem, g % L::ST);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        WgmmaRS<DP>::run(acc, pa[kk], gmma_desc(sV + kk * 16 * 128, 1, 1024, BK * 128), 1);
+      wgmma_commit();
+    };
+    int bh, q0, g = 0;
+    for (int i = 0; work_item64<HEADFOLD>(i, heads, sq, bh, q0); ++i) {
+      const int qs = i % L::QS;
+      const unsigned char* sQ = L::q_slot(smem, w, qs);
+      float acc[DP / 2];
+#pragma unroll
+      for (int j = 0; j < DP / 2; ++j) acc[j] = 0.f;
+      float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f}, alpha[2];
+      float s[BK / 2];
+      uint32_t pa[BK / 16][4];
+      mbar_wait(&bq.qfull[qs], (i / L::QS) & 1);
+      mbar_wait(&b.kfull[g % L::ST], (g / L::ST) & 1);
+      wgmma_fence();
+      qk(s, sQ, g);
+      wgmma_wait_all();
+      fence_regs(s);
+      if (wtid == 0) {
+        mbar_arrive(&b.kempty[g % L::ST]);
+        if (ntiles == 1) mbar_arrive(&bq.qempty[qs]);  // Q's last read is done
+      }
+      softmax_tile<BK>(s, m_run, l_run, alpha, 0, sk, scale_log2, lane);
+      p_fragments<BK>(pa, s);
+      // tile t: P V of tile t from pa while S of tile t + 1 is computed and
+      // its softmax runs; pa takes P of tile t + 1 once P V has read it (one
+      // fragment buffer: two would not fit 168 registers beside S and O)
+      for (int t = 0; t + 1 < ntiles; ++t, ++g) {
+        mbar_wait(&b.kfull[(g + 1) % L::ST], ((g + 1) / L::ST) & 1);
+        mbar_wait(&b.vfull[g % L::ST], (g / L::ST) & 1);
+        wgmma_fence();
+        qk(s, sQ, g + 1);  // the older group: S of tile t + 1
+        pv(acc, pa, g);
+        wgmma_wait_1();
+        fence_regs(s);
+        softmax_tile<BK>(s, m_run, l_run, alpha, (t + 1) * BK, sk, scale_log2, lane);
+        wgmma_wait_all();
+        fence_regs(acc);
+        if (wtid == 0) {
+          mbar_arrive(&b.vempty[g % L::ST]);
+          mbar_arrive(&b.kempty[(g + 1) % L::ST]);
+          if (t + 2 == ntiles) mbar_arrive(&bq.qempty[qs]);
+        }
+        p_fragments<BK>(pa, s);
+        rescale(acc, alpha);
+      }
+      mbar_wait(&b.vfull[g % L::ST], (g / L::ST) & 1);
+      wgmma_fence();
+      pv(acc, pa, g);
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (wtid == 0) mbar_arrive(&b.vempty[g % L::ST]);
+      ++g;
+      store_rows(o + (size_t)bh * sq * d, acc, l_run, q0 + w * kBM, sq, d, 0, wl, lane);
+    }
+  }
+}
+
 // --- d = 512 ------------------------------------------------------------------
 
 struct Wide {
@@ -522,20 +707,25 @@ bool flash_maps(CUtensorMap (&m)[3], const bf16* q, const bf16* k, const bf16* v
 
 // The launch at (b, heads, sq, d rounded up to 16): consumer warpgroups a
 // block, whether each has a K/V ring of its own (kernel A' only), query
-// blocks of one head, the work items and the blocks launched.
-//  * Kernel A (d = 40, 64, 80): persistent blocks over the (batch*head,
-//    query block) items, their warpgroups sharing each K/V tile: three (192
-//    query rows) at d = 40 and 64, two (128) at d = 80, whose three would
-//    spill at 160 registers a thread.
-//  * Kernel A': one block per (batch, query block): three warpgroups on a
-//    shared ring while those 192-query blocks fill half the SMs, else two
-//    warpgroups with a ring each over 64-query blocks (three times the
-//    blocks, each K/V tile read twice from L2).
+// blocks of one head, the work items and the blocks launched, the query rows
+// of a work item, and the blocks each batch's heads are split over (A' at
+// d = 64).
+//  * Kernel A (d = 40, 80): persistent blocks over the (batch*head, query
+//    block) items, their warpgroups sharing each K/V tile: three (192 query
+//    rows) at d = 40, two (128) at d = 80, whose three would spill at 160
+//    registers a thread.
+//  * Kernel A' (d = 40, 80): one block per (batch, query block): three
+//    warpgroups on a shared ring while those 192-query blocks fill half the
+//    SMs, else two warpgroups with a ring each over 64-query blocks (three
+//    times the blocks, each K/V tile read twice from L2).
+//  * d = 64: two warpgroups, 128-row items (D64). Kernel A is persistent
+//    over them; kernel A' gives each (batch, query block) as many blocks,
+//    each walking every so-many'th head, as fill the SMs once.
 //  * d = 512: one block per (batch*head, 64-query block).
 struct Grid {
   int nwg;
   bool split;
-  int qblocks, items, blocks;
+  int qblocks, items, blocks, rows, hsplit;
 };
 
 constexpr int a_warpgroups(int dp) { return dp > 64 ? 2 : 3; }
@@ -544,15 +734,22 @@ Grid flash_grid(int b, int heads, int sq, int dp, bool headfold, int sms) {
   auto qblocks = [sq](int rows) { return (sq + rows - 1) / rows; };
   if (dp > 128) {
     const int qb = qblocks(kBM);
-    return {Wide::WG, false, qb, b * heads * qb, b * heads * qb};
+    return {Wide::WG, false, qb, b * heads * qb, b * heads * qb, kBM, 1};
+  }
+  if (dp == D64::DP) {
+    const int qb = qblocks(D64::ROWS), items = b * heads * qb;
+    if (!headfold) return {D64::NWG, false, qb, items, items < sms ? items : sms, D64::ROWS, 1};
+    int hs = sms / (b * qb);
+    hs = hs < 1 ? 1 : (hs > heads ? heads : hs);
+    return {D64::NWG, false, qb, items, b * qb * hs, D64::ROWS, hs};
   }
   if (!headfold) {
     const int nwg = a_warpgroups(dp), qb = qblocks(nwg * kBM), items = b * heads * qb;
-    return {nwg, false, qb, items, items < sms ? items : sms};
+    return {nwg, false, qb, items, items < sms ? items : sms, nwg * kBM, 1};
   }
   const bool split = 2 * b * qblocks(3 * kBM) < sms;
   const int qb = qblocks(split ? kBM : 3 * kBM);
-  return {split ? 2 : 3, split, qb, b * qb, b * qb};
+  return {split ? 2 : 3, split, qb, b * qb, b * qb, split ? kBM : 3 * kBM, 1};
 }
 
 template <int DP, bool HEADFOLD, int NWG, bool SPLIT>
@@ -582,6 +779,24 @@ cudaError_t launch_flash(const bf16* q, const bf16* k, const bf16* v, bf16* o, i
                                                              stream);
   if (g.split) return launch_narrow<DP, true, 2, true>(m, o, g, b, heads, sq, sk, d, scale, stream);
   return launch_narrow<DP, true, 3, false>(m, o, g, b, heads, sq, sk, d, scale, stream);
+}
+
+template <bool HEADFOLD>
+cudaError_t launch_flash64(const bf16* q, const bf16* k, const bf16* v, bf16* o, int b,
+                           int heads, int sq, int sk, int d, float scale, cudaStream_t stream) {
+  using L = D64;
+  CUtensorMap m[3];
+  if (!flash_maps(m, q, k, v, b * heads, sq, sk, d, 64, L::BK, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  auto kern = flash_fwd64_kernel<HEADFOLD>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(L::bytes));
+  if (e != cudaSuccess) return e;
+  const Grid g = flash_grid(b, heads, sq, L::DP, HEADFOLD, sm_count());
+  const dim3 grid = HEADFOLD ? dim3(g.qblocks, b, g.hsplit) : dim3(g.blocks);
+  kern<<<grid, L::THREADS, L::bytes, stream>>>(m[0], m[1], m[2], o, heads, sq, sk, d,
+                                               scale * kLog2e);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_wide(const bf16* q, const bf16* k, const bf16* v, bf16* o, int bh, int sq,
@@ -616,7 +831,7 @@ INSV2V_EXPORT int flash_attn_fwd(const void* q, const void* k, const void* v, vo
   if (d % 8 != 0 || sq <= 0 || sk <= 0) return cudaErrorInvalidValue;
   switch ((d + 15) / 16 * 16) {
     case 48: return launch_flash<48, false>(Q, K, V, O, 1, bh, sq, sk, d, scale, st);
-    case 64: return launch_flash<64, false>(Q, K, V, O, 1, bh, sq, sk, d, scale, st);
+    case 64: return launch_flash64<false>(Q, K, V, O, 1, bh, sq, sk, d, scale, st);
     case 80: return launch_flash<80, false>(Q, K, V, O, 1, bh, sq, sk, d, scale, st);
     case 512: return launch_wide(Q, K, V, O, bh, sq, sk, d, scale, st);
     default: return cudaErrorInvalidValue;
@@ -639,7 +854,7 @@ INSV2V_EXPORT int flash_attn_fwd_headfold(const void* q, const void* k, const vo
   if (d % 8 != 0 || sq <= 0 || sk <= 0 || heads <= 0) return cudaErrorInvalidValue;
   switch ((d + 15) / 16 * 16) {
     case 48: return launch_flash<48, true>(Q, K, V, O, b, heads, sq, sk, d, scale, st);
-    case 64: return launch_flash<64, true>(Q, K, V, O, b, heads, sq, sk, d, scale, st);
+    case 64: return launch_flash64<true>(Q, K, V, O, b, heads, sq, sk, d, scale, st);
     case 80: return launch_flash<80, true>(Q, K, V, O, b, heads, sq, sk, d, scale, st);
     default: return cudaErrorInvalidValue;
   }
@@ -648,7 +863,8 @@ INSV2V_EXPORT int flash_attn_fwd_headfold(const void* q, const void* k, const vo
 // The grid that flash_attn_fwd (headfold = 0) or flash_attn_fwd_headfold
 // (headfold = 1) launches at (b, heads, sq, d) on the current device:
 // out[0] consumer warpgroups a block, out[1] blocks, out[2] work items (the
-// query blocks of every head, shared out over the blocks).
+// query blocks of every head, shared out over the blocks), out[3] query rows
+// a work item, out[4] keys a K/V tile.
 INSV2V_EXPORT int flash_attn_grid(int b, int heads, int sq, int d, int headfold, int* out) {
   const int dp = (d + 15) / 16 * 16;
   if (d % 8 != 0 || sq <= 0 || b <= 0 || heads <= 0 ||
@@ -658,5 +874,7 @@ INSV2V_EXPORT int flash_attn_grid(int b, int heads, int sq, int d, int headfold,
   out[0] = g.nwg;
   out[1] = g.blocks;
   out[2] = g.items;
+  out[3] = g.rows;
+  out[4] = dp > 128 ? Wide::BK : dp == D64::DP ? D64::BK : 64;
   return cudaSuccess;
 }

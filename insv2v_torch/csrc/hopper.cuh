@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives shared by the kernels that use TMA and wgmma
-// (flash_attn.cu, geglu_ff.cu): wgmma fences and operand descriptors, the
-// wgmma shapes the kernels use, mbarriers, TMA loads, named barriers,
+// (flash_attn.cu, geglu_ff.cu) or bulk copies (temporal_attn.cu): wgmma
+// fences and operand descriptors, the wgmma shapes the kernels use,
+// mbarriers, TMA loads, bulk copies, named barriers,
 // warpgroup register reallocation, and on the host the SM count and the
 // tensor-map encoder (looked up at run time, so nothing new is linked).
 #pragma once
@@ -348,6 +349,32 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, i
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
       "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
       : "memory");
+}
+
+// --- bulk copies (no tensor map) ------------------------------------------------
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global to
+// shared memory, completing on `bar` as TMA's tensor loads do
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// `bytes` from shared to global memory, in this thread's bulk async-group;
+// the shared-memory writes it reads must be fenced first (fence_proxy_async)
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // --- barriers and registers --------------------------------------------------

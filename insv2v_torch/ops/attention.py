@@ -117,13 +117,15 @@ def _launch_flash(q, k, v, scale: float, headfold: bool):
 def flash_grid(b: int, h: int, sq: int, d: int, headfold: bool) -> dict:
     """The grid that kernel A, or A' when ``headfold``, launches at
     (B, H, Sq, D) on the current CUDA device, as its launcher chooses it:
-    consumer ``warpgroups`` a block, ``blocks`` launched and the work
-    ``items`` (query blocks of every head) they share out."""
-    out = (ctypes.c_int * 3)()
+    consumer ``warpgroups`` a block, ``blocks`` launched, the work ``items``
+    (query blocks of every head) they share out, the query ``rows`` of an
+    item and the keys of a K/V tile (``key_tile``)."""
+    out = (ctypes.c_int * 5)()
     status = build.load("flash_attn").flash_attn_grid(
         *(ctypes.c_int(x) for x in (b, h, sq, d, int(headfold))), out)
     build.check("flash_attn", status)
-    return {"warpgroups": out[0], "blocks": out[1], "items": out[2]}
+    return {"warpgroups": out[0], "blocks": out[1], "items": out[2], "rows": out[3],
+            "key_tile": out[4]}
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None, headfold: Optional[bool] = None):
@@ -196,13 +198,16 @@ def _launch_temporal(q, k, v, scale: float):
 
 def temporal_grid(b: int, p: int, f: int, heads: int, e: int) -> dict:
     """The grid that kernel C launches at (B, P, F, heads, e) on the current
-    CUDA device: ``blocks`` of ``threads`` (one warp a (pixel, head)
-    problem) and the blocks ``resident`` an SM (the occupancy API)."""
-    out = (ctypes.c_int * 3)()
+    CUDA device: persistent ``blocks`` of ``threads`` (a producer warp and a
+    warp a head of the unit), the blocks ``resident`` an SM (the occupancy
+    API), the work ``units`` of ``heads_per_unit`` heads of one pixel that
+    the blocks walk, and the ring ``stages`` a block has."""
+    out = (ctypes.c_int * 6)()
     status = build.load("temporal_attn").temporal_attn_grid(
         *(ctypes.c_int(x) for x in (b * p, f, heads, e)), out)
     build.check("temporal_attn", status)
-    return {"blocks": out[0], "threads": out[1], "resident": out[2]}
+    return {"blocks": out[0], "threads": out[1], "resident": out[2],
+            "heads_per_unit": out[3], "units": out[4], "stages": out[5]}
 
 
 def temporal_attention(q, k, v, scale: Optional[float] = None):

@@ -33,13 +33,13 @@ def _randn(gen, *shape, scale=1.0):
                                          (1, 2, 100, 700, 80), (1, 1, 260, 300, 512),
                                          (2, 1, 1024, 1000, 512), (1, 1, 40, 300, 512),
                                          (2, 5, 1000, 1000, 64), (4, 10, 256, 256, 64),
-                                         (1, 3, 300, 1024, 64)])
+                                         (1, 3, 300, 1024, 64), (2, 5, 1024, 1024, 64)])
 def test_flash_kernel_matches_twin(cuda, b, h, sq, sk, d):
-    """Ragged lengths (not multiples of the 64-key tiles at d = 40/64/80 or
-    the 32-key tiles at d = 512, nor of the 64, 128 or 192 query rows of a
-    work item), sq != sk; at d = 512 the training depth and fewer queries
-    than one query block; at d = 64 (ModelScope) its two self-attention
-    levels, one of them ragged."""
+    """Ragged lengths (not multiples of the 64-key tiles at d = 40/80, the
+    128-key tiles at d = 64 or the 32-key tiles at d = 512, nor of the 64,
+    128 or 192 query rows of a work item), sq != sk; at d = 512 the
+    training depth and fewer queries than one query block; at d = 64
+    (ModelScope) its two self-attention lengths exactly, and ragged."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = _randn(g, b, h, sq, d), _randn(g, b, h, sk, d), _randn(g, b, h, sk, d)
     before = tattn.flash_attention.launches
@@ -53,12 +53,15 @@ def test_flash_kernel_matches_twin(cuda, b, h, sq, sk, d):
 @pytest.mark.parametrize("b,h,sq,sk,d", [(2, 8, 300, 300, 40), (2, 8, 384, 260, 80),
                                          (1, 3, 100, 700, 80), (3, 8, 256, 256, 80),
                                          (2, 8, 1024, 1024, 40), (34, 2, 384, 300, 40),
-                                         (2, 10, 256, 256, 64), (40, 5, 1000, 1000, 64)])
+                                         (2, 10, 256, 256, 64), (40, 5, 1000, 1000, 64),
+                                         (2, 5, 1024, 1024, 64), (1, 3, 300, 1024, 64)])
 def test_flash_headfold_kernel_matches_twin(cuda, b, h, sq, sk, d):
     """Kernel A': ragged lengths, sq != sk, an odd head count, and training's
     shapes at a small batch: fewer blocks than SMs, several heads per
-    consumer warpgroup. The last case has enough (batch, query block)
-    blocks for the form whose warpgroups share one K/V ring."""
+    consumer warpgroup. (34, 2, 384, 300, 40) has enough (batch, query
+    block) blocks for the form whose warpgroups share one K/V ring. At
+    d = 64 ModelScope's lengths exactly and ragged, with a batch's heads
+    split over blocks (few blocks) and not (many)."""
     g = torch.Generator(device=cuda).manual_seed(5)
     q, k, v = _randn(g, b, h, sq, d), _randn(g, b, h, sk, d), _randn(g, b, h, sk, d)
     before = tattn.flash_attention_headfold.launches, tattn.flash_attention.launches
@@ -74,13 +77,36 @@ def test_flash_headfold_kernel_matches_twin(cuda, b, h, sq, sk, d):
 
 
 def test_flash_headfold_cases_cover_both_forms(cuda):
-    """The cases above reach both forms of kernel A' as its launcher
-    chooses them: two warpgroups with a ring each over 64-query blocks
-    where blocks are few, three on a shared ring otherwise."""
+    """The cases above reach both forms of kernel A' at d = 40/80 as its
+    launcher chooses them: two warpgroups with a ring each over 64-query
+    blocks where blocks are few, three on a shared ring otherwise. At
+    d = 64 A' has one body, two warpgroups on 128-row items, whose heads
+    are split over blocks where (batch, query block) pairs are few."""
     assert tattn.flash_grid(3, 8, 256, 80, headfold=True)["warpgroups"] == 2
     assert tattn.flash_grid(34, 2, 384, 40, headfold=True)["warpgroups"] == 3
-    assert tattn.flash_grid(2, 10, 256, 64, headfold=True)["warpgroups"] == 2
-    assert tattn.flash_grid(40, 5, 1000, 64, headfold=True)["warpgroups"] == 3
+    few, many = (tattn.flash_grid(2, 10, 256, 64, headfold=True),
+                 tattn.flash_grid(40, 5, 1000, 64, headfold=True))
+    assert few["warpgroups"] == many["warpgroups"] == 2
+    assert few["blocks"] > 2 * 2 and many["blocks"] == 40 * 8
+
+
+@pytest.mark.parametrize("b,h,s", [(64, 5, 1024), (64, 10, 256), (32, 5, 1024), (32, 10, 256)])
+def test_flash_d64_grid_takes_128_row_items(cuda, b, h, s):
+    """At d = 64 (the data-generation shapes) A and A' take 128-row work
+    items of two warpgroups, which divide S = 1024 and 256, and 128-key
+    tiles; A is persistent, A' covers every (batch, query block) pair.
+    d = 40 and 80 keep their own grids: 192- and 128-row items, 64-key
+    tiles."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    a, af = (tattn.flash_grid(b, h, s, 64, headfold=hf) for hf in (False, True))
+    for g in (a, af):
+        assert (g["warpgroups"], g["rows"], g["key_tile"]) == (2, 128, 128)
+        assert g["items"] == b * h * (s // 128)
+    assert a["blocks"] == min(a["items"], sms)
+    assert af["blocks"] % (b * (s // 128)) == 0 and af["blocks"] <= max(sms, b * (s // 128))
+    for d, rows in ((40, 192), (80, 128)):
+        g = tattn.flash_grid(48, 8, 1536, d, headfold=False)
+        assert (g["rows"], g["key_tile"]) == (rows, 64)
 
 
 @pytest.mark.parametrize("rows,c", [(1000, 320), (77, 768), (40, 1280), (7, 640), (9, 72)])
@@ -187,6 +213,45 @@ def test_temporal_kernel_matches_twin(cuda, f, e):
     assert tattn.temporal_attention.launches == before + 1
     ref = tattn.temporal_attention_reference(q.float(), k.float(), v.float())
     assert (out.float() - ref).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("p", [7, 301])
+@pytest.mark.parametrize("heads", [1, 5, 8])
+@pytest.mark.parametrize("e", [8, 40, 80, 160])
+@pytest.mark.parametrize("f", [1, 5, 16, 17, 32])
+def test_temporal_kernel_shapes_match_twin(cuda, f, e, heads, p):
+    """Kernel C at every frame tiling (1, 5 and 16 frames in the 16-frame
+    tile, 17 and 32 in the 32-frame one), every compiled head width (8 and
+    40 padded in the fragments, 80 and 160 not), one, five and eight heads
+    (whole-pixel units and units of fewer heads), at 7 pixels (P * heads
+    below the SM count: each unit its own block) and 301 (no multiple of
+    the blocks: persistent blocks walk uneven numbers of units)."""
+    g = torch.Generator(device=cuda).manual_seed(f * 1000 + e * 10 + heads)
+    q, k, v = (_randn(g, 1, p, f, heads, e) for _ in range(3))
+    out = tattn.temporal_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = tattn.temporal_attention_reference(q.float(), k.float(), v.float())
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    grid = tattn.temporal_grid(1, p, f, heads, e)
+    assert grid["units"] == p * heads // grid["heads_per_unit"]
+    assert grid["blocks"] == grid["units"] if p == 7 else grid["blocks"] <= grid["units"]
+
+
+def test_temporal_grid_units_follow_the_shapes(cuda):
+    """Kernel C's work units: whole pixels (8 heads) at the edit's 40-wide
+    level, 4 and 2 heads where a whole pixel's stage would not fit
+    (e = 80, 160), one head where the units would be too few for the SMs
+    (the 24-pixel level); blocks persistent, never more than the units or
+    than the SMs hold."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for shape, per_unit in (((3, 1536, 16, 8, 40), 8), ((3, 384, 16, 8, 80), 4),
+                            ((3, 96, 16, 8, 160), 2), ((3, 24, 16, 8, 160), 1)):
+        b, p, f, heads, e = shape
+        grid = tattn.temporal_grid(*shape)
+        assert grid["heads_per_unit"] == per_unit
+        assert grid["units"] == b * p * heads // per_unit
+        assert grid["threads"] == 32 * (per_unit + 1)
+        assert grid["blocks"] == min(grid["units"], grid["resident"] * sms)
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Kernel A of the PyTorch port (``flash_attention``, and A' with
-``headfold``): registers and spills of every compiled variant, then each
-kernel against its float32 twin and timed, on one GPU.
+``headfold``): registers and spills of every compiled variant of A and of
+kernel C, then A and A' against their float32 twin and timed, on one GPU.
 
     python3 tools/torch_flash_probe.py [B,H,S,D ...]
 
-Builds ``csrc/flash_attn.cu`` with ptxas' report (``-Xptxas -v``) and
-prints, for each kernel it compiles, its registers, stack and spill bytes;
+Builds ``csrc/flash_attn.cu`` and ``csrc/temporal_attn.cu`` with ptxas'
+report (``-Xptxas -v``) and prints, for each kernel it compiles, its
+registers, stack and spill bytes;
 then, at each shape given (default: ``chip_smoke.DATAGEN_FLASH_SHAPES``,
 ModelScope's d = 64 self-attention), A and A' on seeded bf16 inputs: max
 |error| against the twin and the device time per call from torch.profiler
@@ -28,11 +29,13 @@ sys.path.insert(0, ROOT)
 
 
 def _kernel_name(mangled: str) -> str:
-    """flash_fwd_kernel<DP, HEADFOLD, NWG, SPLIT> or flash_fwd_wide_kernel."""
-    m = re.search(r"(flash_fwd_(?:wide_)?kernel)(?:ILi(\d+)ELb(\d)ELi(\d)ELb(\d)E)?", mangled)
+    """flash_fwd_kernel<DP, HEADFOLD, NWG, SPLIT>, flash_fwd64_kernel<HEADFOLD>,
+    flash_fwd_wide_kernel or temporal_attn_kernel<FP, EP>."""
+    m = re.search(r"(flash_fwd_kernel|flash_fwd64_kernel|flash_fwd_wide_kernel|"
+                  r"temporal_attn_kernel)(I(?:L[bi]\d+E)+E)?", mangled)
     if not m:
         return mangled
-    args = [g for g in m.groups()[1:] if g is not None]
+    args = re.findall(r"L[bi](\d+)E", m.group(2) or "")
     return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
@@ -47,17 +50,18 @@ def main(argv):
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    with tempfile.TemporaryDirectory() as tmp:
-        cmd = [build._nvcc(), *build._FLAGS, "-Xptxas", "-v", "-o", os.path.join(tmp, "lib.so"),
-               str(build.CSRC / "flash_attn.cu")]
-        out = subprocess.run(cmd, capture_output=True, text=True, check=True)
-    kernel = None
-    for line in (out.stdout + out.stderr).splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            kernel = _kernel_name(m.group(1))
-        elif kernel and ("spill" in line or "registers" in line):
-            print(f"ptxas {kernel}: {line.strip()}")
+    for source in ("flash_attn", "temporal_attn"):
+        with tempfile.TemporaryDirectory() as tmp:
+            cmd = [build._nvcc(), *build._FLAGS, "-Xptxas", "-v", "-o",
+                   os.path.join(tmp, "lib.so"), str(build.CSRC / f"{source}.cu")]
+            out = subprocess.run(cmd, capture_output=True, text=True, check=True)
+        kernel = None
+        for line in (out.stdout + out.stderr).splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                kernel = _kernel_name(m.group(1))
+            elif kernel and ("spill" in line or "registers" in line):
+                print(f"ptxas {kernel}: {line.strip()}")
     shapes = ([tuple(int(x) for x in a.split(",")) for a in argv] if argv
               else cs.DATAGEN_FLASH_SHAPES)
     gen = torch.Generator(device="cuda").manual_seed(0)
