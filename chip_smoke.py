@@ -14,10 +14,15 @@ frame- and batch-sharded windows) and times the native batch loader.
     python3 chip_smoke.py --only env,build,parity,grad,train,variants,flow,loveu,datagen
     python3 chip_smoke.py --only env,build,dp,sp,loader
     python3 chip_smoke.py --only env,build,split,demo,t5
+    python3 chip_smoke.py --only env,build,parity,ckpt
 
 Phases: env, build, parity (kernels A, A', B, C, D against their twins,
 with times, bounds and the one-call PyTorch yardstick), unet (GPU bf16 vs
-CPU float32 on a small latent), edit (32 frames at 256x384, 3 windows,
+CPU float32 on a small latent), ckpt (the UNet written as a Lightning
+checkpoint with pickled hyper-parameters and loaded through the edit
+CLI's ``make_editor``: every tensor bit-equal, one edit UNet call against
+the source UNet, and a planted dropped tensor that must read above the
+gate), edit (32 frames at 256x384, 3 windows,
 50-step DDIM: the workload bench.py times for the JAX package), profile
 (one UNet call of the edit under torch.profiler: device time by kernel
 class and the device's idle share), split (the up blocks' split-skip path,
@@ -86,21 +91,23 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # (384x384: UNet levels 0 and 1, VAE encode and decode)
 # and data generation's: ModelScope's UNetSD attn1 at d = 64, levels 0 and 1
 # of a 4-way phase-1 call (4 x 16 frames of 32x32 latents) and of a 2-way
-# phase-2/3 call
+# phase-2/3 call; last an sp rank's UNet attn1 (the edit's, half the frames)
 DATAGEN_FLASH_SHAPES = [(64, 5, 1024, 64), (64, 10, 256, 64), (32, 5, 1024, 64),
                         (32, 10, 256, 64)]
 FLASH_SHAPES = [(48, 8, 1536, 40), (48, 8, 384, 80), (16, 1, 1536, 512), (8, 1, 1536, 512),
                 (16, 1, 1024, 512), (48, 8, 2304, 40), (48, 8, 576, 80), (16, 1, 2304, 512),
-                (8, 1, 2304, 512)] + DATAGEN_FLASH_SHAPES
+                (8, 1, 2304, 512)] + DATAGEN_FLASH_SHAPES + [(24, 8, 1536, 40), (24, 8, 384, 80)]
 # kernel A': the edit's UNet attn1 shapes of kernel A (the VAE's one head
 # takes A), then training's (16 frames at 256x256, where A' is on), then
 # data generation's (A' there only with INSV2V_FLASH_HEADFOLD=1)
 HEADFOLD_SHAPES = FLASH_SHAPES[:2] + [(16, 8, 1024, 40), (16, 8, 256, 80)] + DATAGEN_FLASH_SHAPES
 # kernel B: (rows, C) of every spatial and motion FF at 48 frames of 32x48
-# (the edit), at 16 frames of 32x32 (training), at 48 frames of 48x48 (LOVEU)
+# (the edit), at 16 frames of 32x32 (training), at 48 frames of 48x48
+# (LOVEU), at an sp rank's 24 frames of 32x48
 FF_SHAPES = [(73728, 320), (18432, 640), (4608, 1280), (1152, 1280),
              (16384, 320), (4096, 640), (1024, 1280), (256, 1280),
-             (110592, 320), (27648, 640), (6912, 1280), (1728, 1280)]
+             (110592, 320), (27648, 640), (6912, 1280), (1728, 1280),
+             (36864, 320), (9216, 640), (2304, 1280), (576, 1280)]
 # kernel C: (B, P, F, heads, e) of the motion modules at levels 0..3, the
 # edit's (32x48 latents), the LOVEU runner's (48x48), training's (one
 # 16-frame video of 32x32 latents) and an sp rank's (the edit's, half the
@@ -121,6 +128,10 @@ TRAIN_FRAMES, TRAIN_SIZE, TRAIN_ACCUM = 16, 256, 2
 TOL = {  # max |kernel - f32 twin|, bf16-level: 8 mantissa bits of O(1) outputs
     "flash_attention": 2e-2, "flash_attention_headfold": 2e-2, "fused_geglu_ff": 6e-2,
     "temporal_attention": 2e-2, "fused_layer_norm": 2e-2}
+# relative L2 of one edit UNet call through a UNet loaded from a Lightning
+# checkpoint against the UNet it was written from: the same bf16 weights
+# and kernels, so any reading above it is a weight the load missed
+CKPT_TOL = 1e-3
 # relative L2, GPU bf16 against CPU float32 through the full-width UNet:
 # the forward, and the motion gradients of a forward and backward (both
 # measured near 1e-2: bf16 rounding through ~50 layers each way)
@@ -439,6 +450,85 @@ def phase_unet(models, gen):
             f"{rel:.3e} (tol {UNET_TOL:g}), max |ref| {ref.abs().max().item():.3f}")
         if not (torch.isfinite(got).all() and rel <= UNET_TOL):
             raise AssertionError(f"UNet GPU/CPU disagreement with {label}: {rel}")
+
+
+def _write_lightning(path, unet, drop=None):
+    """The UNet's weights as the reference's trainer saves a checkpoint:
+    Lightning's ``state_dict`` under DeepSpeed's ``_forward_module.``, with
+    pickled ``hyper_parameters`` (which the safe unpickler refuses) beside
+    them; ``drop``: a key left out. Returns the seconds to write."""
+    t0 = time.perf_counter()
+    sd = {f"_forward_module.unet.{k}": v.cpu() for k, v in unet.state_dict().items()
+          if k != drop}
+    torch.save({"state_dict": sd, "epoch": 0, "global_step": 0,
+                "hyper_parameters": argparse.Namespace(lr=1e-5, accumulate_grad_batches=2)},
+               path)
+    return time.perf_counter() - t0
+
+
+def phase_ckpt(models, args, gen):
+    """The edit's entry point on a checkpoint in the reference's Lightning
+    form: the full-width UNet's weights written to a file, then
+    ``make_editor`` (the edit CLI's loader; its VAE and text model stay at
+    seed + 1) loads it. Every UNet tensor must come back bit-equal, and one
+    edit UNet call (3 x 16 frames of 32x48) through kernels A, B and C must
+    agree with the source UNet's within CKPT_TOL. Then a planted fault: the
+    same file without one motion-module tensor (a strict=False load keeps
+    seed + 1's value), whose call must read above the gate."""
+    import tempfile
+    import warnings
+
+    from insv2v_torch.apps.edit_video import make_editor
+
+    unet = models["unet"]
+    src = unet.state_dict()
+    x = torch.randn(3, 16, 32, 48, 8, generator=gen).cuda().bfloat16()
+    ctx = torch.randn(3, 77, 768, generator=gen).cuda().bfloat16()
+    t = torch.full((3,), 501, device="cuda")
+    with torch.no_grad():
+        ref = unet(x, t, ctx, video_start_index=0).float()
+    drop = next(k for k in src if ".motion_modules." in k and k.endswith("proj_out.weight"))
+    readings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, dropped in (("whole", None), ("planted", drop)):
+            path = os.path.join(tmp, f"{label}.ckpt")
+            write_s = _write_lightning(path, unet, dropped)
+            size = os.path.getsize(path)
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                editor = make_editor(CONFIG, path, "ddim", args.steps, False, device="cuda",
+                                     seed=args.seed + 1)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            os.remove(path)
+            fell_back = any("falling back to torch.load" in str(w.message) for w in caught)
+            loaded = editor.unet.state_dict()
+            differ = [k for k in src if not torch.equal(loaded[k], src[k])]
+            _zero_launches()
+            with torch.no_grad():
+                got = editor.unet(x, t, ctx, video_start_index=0).float()
+            torch.cuda.synchronize()
+            launches = _read_launches(f"ckpt ({label})", ("flash_attention", "fused_geglu_ff",
+                                                          "temporal_attention"))
+            rel = ((got - ref).norm() / ref.norm()).item()
+            readings[label] = {"differ": differ, "rel": rel, "fell_back": fell_back,
+                               "finite": bool(torch.isfinite(got).all()), "launches": launches}
+            log(f"ckpt {label}: Lightning file of {len(src) - (dropped is not None)} UNet "
+                f"tensors, {size / 2 ** 30:.3f} GiB, written in {write_s:.2f} s, loaded through "
+                f"make_editor (models built at seed {args.seed + 1}) in {load_s:.2f} s; loader "
+                f"fell back to weights_only=False with its warning: {fell_back}; tensors not "
+                f"bit-equal to the source: {len(differ)} {differ[:3]}; one edit UNet call "
+                f"(3x16x32x48) rel L2 vs the source UNet {rel:.3e} (gate {CKPT_TOL:g})")
+            del editor, loaded, got
+            torch.cuda.empty_cache()
+    whole, planted = readings["whole"], readings["planted"]
+    if not (whole["fell_back"] and not whole["differ"] and whole["finite"]
+            and whole["rel"] <= CKPT_TOL):
+        raise AssertionError(f"the Lightning checkpoint did not load whole: {whole}")
+    if not (planted["differ"] == [drop] and planted["rel"] > CKPT_TOL):
+        raise AssertionError(f"the gate missed the dropped tensor {drop}: {planted}")
+    return whole["launches"]
 
 
 def phase_edit(models, args, gen):
@@ -2125,8 +2215,8 @@ def phase_dp_cli(args):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", default="env,build,parity,unet,edit,flow,profile,split,variants,"
-                                      "grad,train,loader,loveu,demo,t5,datagen,dp,sp")
+    ap.add_argument("--only", default="env,build,parity,unet,ckpt,edit,flow,profile,split,"
+                                      "variants,grad,train,loader,loveu,demo,t5,datagen,dp,sp")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -2153,7 +2243,7 @@ def main():
         phase_build()
     if "parity" in phases:
         entries = phase_parity(gen)
-    if {"unet", "edit", "flow", "profile", "split", "variants", "grad", "train",
+    if {"unet", "ckpt", "edit", "flow", "profile", "split", "variants", "grad", "train",
             "loader"} & set(phases):
         from insv2v_torch.utils.factory import build_models
 
@@ -2165,6 +2255,8 @@ def main():
             f"{time.perf_counter() - t0:.1f} s")
         if "unet" in phases:
             phase_unet(models, cpu_gen)
+        if "ckpt" in phases:
+            paths["ckpt"] = phase_ckpt(models, args, cpu_gen)
         plain_step = None
         if "edit" in phases:
             paths["edit"], plain_step = phase_edit(models, args, cpu_gen)

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 __all__ = ["make_betas", "DiffusionSchedule", "SamplerTables", "make_sampler_tables",
-           "add_noise", "pred_x0_from_eps", "ddim_step", "ddpm_step", "sampler_step"]
+           "add_noise", "pred_x0_from_eps", "pred_eps_from_x0", "ddim_step", "ddpm_step",
+           "sampler_step"]
 
 
 def make_betas(schedule: str, num_timesteps: int, beta_start: float = 1e-4,
@@ -77,6 +78,15 @@ def pred_x0_from_eps(schedule: DiffusionSchedule, x_t: torch.Tensor, eps: torch.
     a = _at(schedule.sqrt_alphas_cumprod, t, x_t)
     s = _at(schedule.sqrt_one_minus_alphas_cumprod, t, x_t)
     return (x_t.float() - s * eps.float()) / a
+
+
+def pred_eps_from_x0(schedule: DiffusionSchedule, x_t: torch.Tensor, x0: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+    """The noise x_t implies given a known x0 (the ref-frame anchoring's
+    formula): (x_t - sqrt(a_t) x0) / sqrt(1 - a_t), in float32."""
+    a = _at(schedule.sqrt_alphas_cumprod, t, x_t)
+    s = _at(schedule.sqrt_one_minus_alphas_cumprod, t, x_t)
+    return (x_t.float() - a * x0.float()) / s
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,7 +13,10 @@ conversion beyond the reference's own wrappers:
   * DeepSpeed's ``_forward_module.`` prefix and Lightning's
     ``state_dict`` nesting are unwrapped; the VAE's ``loss.`` tree and the
     motion modules' ``pos_encoder.pe`` tables (regenerated from their
-    size) are dropped.
+    size) are dropped;
+  * a full Lightning checkpoint, whose ``hyper_parameters`` the safe
+    unpickler refuses, loads through ``torch.load(weights_only=False)``
+    with a warning.
 
 The training state is the step, the float32 motion masters and the
 optimizer's state (JAX: an orbax ``TrainState``), one file per step
@@ -29,13 +32,14 @@ princeton-vl RAFT ``.pth`` (DataParallel's ``module.`` prefix stripped).
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Dict, Mapping, Optional
 
 import torch
 
-__all__ = ["strip_prefixes", "load_torch_weights", "split_fused", "load_pipeline_state_dicts",
-           "load_into", "load_clip_model_state_dict", "load_raft_state_dict",
-           "save_train_state", "restore_train_state"]
+__all__ = ["strip_prefixes", "merge_unet_motion_state_dicts", "load_torch_weights", "split_fused",
+           "load_pipeline_state_dicts", "load_into", "load_clip_model_state_dict",
+           "load_raft_state_dict", "save_train_state", "restore_train_state"]
 
 
 def strip_prefixes(sd: Mapping, prefixes=("_forward_module.",)) -> Dict[str, torch.Tensor]:
@@ -51,10 +55,35 @@ def strip_prefixes(sd: Mapping, prefixes=("_forward_module.",)) -> Dict[str, tor
     return out
 
 
+def merge_unet_motion_state_dicts(sd_unet: Mapping, sd_motion: Mapping,
+                                  expected_total: Optional[int] = None
+                                  ) -> Dict[str, torch.Tensor]:
+    """The SD/ip2p UNet's weights and the AnimateDiff motion weights as one
+    state dict (the reference's two-source merge): a key in both, or a
+    union of other than ``expected_total`` keys (where given), raises."""
+    sd = dict(strip_prefixes(sd_unet))
+    motion = strip_prefixes(sd_motion)
+    overlap = set(sd) & set(motion)
+    if overlap:
+        raise ValueError(f"unexpected key overlap in merge: {sorted(overlap)[:5]}")
+    sd.update(motion)
+    if expected_total is not None and len(sd) != expected_total:
+        raise ValueError(f"improper state dict length, got {len(sd)} expected {expected_total}")
+    return sd
+
+
 def load_torch_weights(path: str) -> Dict[str, torch.Tensor]:
-    """A flat state dict from a torch checkpoint file (tensors only: the
-    loader refuses arbitrary pickled objects)."""
-    return strip_prefixes(torch.load(path, map_location="cpu", weights_only=True))
+    """A flat state dict from a torch checkpoint file. Tensor-only files
+    load with the safe unpickler; a file it refuses (a full Lightning
+    checkpoint, whose ``hyper_parameters`` are pickled objects) loads again
+    with ``weights_only=False``, after a warning."""
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception:
+        warnings.warn(f"{path}: falling back to torch.load(weights_only=False); "
+                      "only load checkpoints from trusted sources")
+        sd = torch.load(path, map_location="cpu", weights_only=False)
+    return strip_prefixes(sd)
 
 
 def _port_unet(sd: Mapping) -> Dict[str, torch.Tensor]:
@@ -99,11 +128,7 @@ def load_pipeline_state_dicts(fused_ckpt: Optional[str] = None,
     if unet_weights:
         unet = load_torch_weights(unet_weights)
         if motion_weights:
-            motion = load_torch_weights(motion_weights)
-            overlap = set(unet) & set(motion)
-            if overlap:
-                raise ValueError(f"unexpected key overlap in merge: {sorted(overlap)[:5]}")
-            unet.update(motion)
+            unet = merge_unet_motion_state_dicts(unet, load_torch_weights(motion_weights))
         sds["unet"] = _port_unet(unet)
     if vae_weights:
         sds["vae"] = _port_vae(load_torch_weights(vae_weights))

@@ -9,7 +9,7 @@ from __future__ import annotations
 import re
 from typing import Any, Dict, Mapping
 
-__all__ = ["load_config", "interpolate"]
+__all__ = ["load_config", "interpolate", "merge_args"]
 
 _VAR = re.compile(r"\$\{([^}]+)\}")
 
@@ -42,3 +42,13 @@ def load_config(path: str) -> Dict[str, Any]:
             break
         cfg = new
     return cfg
+
+
+def merge_args(cfg: Dict[str, Any], args) -> Dict[str, Any]:
+    """A new config whose top-level keys are overridden by the argparse
+    Namespace's values that are not None (the reference's ``main.py``)."""
+    out = dict(cfg)
+    for k, v in vars(args).items():
+        if v is not None:
+            out[k] = v
+    return out

@@ -4,8 +4,9 @@ unless noted.
 The port's own copy of ``utils/media.py`` in the JAX package, for the
 edit CLI and the LOVEU runner and scorer: uint8 conversion, GIF save and
 load, frame dumps, mp4 decoding with an aspect-preserving resize and
-centre crop, and side-by-side concatenation. (The demos' helpers, canny
-edges, histogram matching and caption overlays, come with the demos.)
+centre crop, side-by-side concatenation, and the reference's
+``image_utils.py`` extras: canny edges, histogram matching and caption
+overlays.
 
 GIFs go through Pillow: it is installed wherever the port runs, GPU
 machine included, while imageio (the JAX package's GIF library, itself a
@@ -21,7 +22,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 __all__ = ["to_uint8", "from_uint8", "save_gif", "load_gif", "save_frames", "resize_frame",
-           "read_video_frames", "concat_videos"]
+           "read_video_frames", "concat_videos", "canny_edges", "match_histogram", "overlay_text"]
 
 
 def to_uint8(frames: np.ndarray) -> np.ndarray:
@@ -116,3 +117,40 @@ def read_video_frames(path: str, num_frames: Optional[int] = None, start_frame: 
 def concat_videos(videos: Sequence[np.ndarray], axis: int = 2) -> np.ndarray:
     """Side-by-side (``axis=2``: width) concatenation of equal-length videos."""
     return np.concatenate(list(videos), axis=axis)
+
+
+def canny_edges(frames: np.ndarray, low: int = 100, high: int = 200) -> np.ndarray:
+    """Canny edge maps of a batch: (F, H, W, 3) in [-1, 1] -> (F, H, W, 1)
+    in [-1, 1]."""
+    import cv2
+
+    edges = [cv2.Canny(cv2.cvtColor(fr, cv2.COLOR_RGB2GRAY), low, high)
+             for fr in to_uint8(frames)]
+    return from_uint8(np.stack(edges)[..., None])
+
+
+def match_histogram(source: np.ndarray, reference: np.ndarray) -> np.ndarray:
+    """Per-channel histogram matching of ``source`` to ``reference``, both
+    (H, W, 3) in [-1, 1]."""
+    src, ref = to_uint8(source), to_uint8(reference)
+    out = np.empty_like(src)
+    for c in range(src.shape[-1]):
+        s_vals, s_idx, s_counts = np.unique(src[..., c].ravel(), return_inverse=True,
+                                            return_counts=True)
+        r_vals, r_counts = np.unique(ref[..., c].ravel(), return_counts=True)
+        s_q = np.cumsum(s_counts).astype(np.float64)
+        s_q /= s_q[-1]
+        r_q = np.cumsum(r_counts).astype(np.float64)
+        r_q /= r_q[-1]
+        out[..., c] = np.interp(s_q, r_q, r_vals)[s_idx].reshape(src[..., c].shape)
+    return from_uint8(out)
+
+
+def overlay_text(frame: np.ndarray, text: str, scale: float = 0.5) -> np.ndarray:
+    """A caption burnt into the bottom left of a frame (H, W, 3) in [-1, 1]."""
+    import cv2
+
+    img = to_uint8(frame).copy()
+    cv2.putText(img, text, (4, img.shape[0] - 8), cv2.FONT_HERSHEY_SIMPLEX, scale,
+                (255, 255, 255), 1, cv2.LINE_AA)
+    return from_uint8(img)
