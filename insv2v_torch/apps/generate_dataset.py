@@ -25,7 +25,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
 
 
 def build_parser():
@@ -138,6 +137,7 @@ def main(argv=None):
     from insv2v_torch.text.prompt_diff import build_ptp_key_value, compute_diff
     from insv2v_torch.text.tokenizer import get_tokenizer
     from insv2v_torch.utils.media import save_gif, to_uint8
+    from insv2v_torch.utils.tracing import StageClock
 
     dev = resolve_device(args.device)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
@@ -165,11 +165,6 @@ def main(argv=None):
         print("WARNING: no --clip-filter-ckpt given; accepting all samples "
               "(pass --no-clip-filter to silence)")
 
-    def clock():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        return time.perf_counter()
-
     rs = np.random.RandomState(args.seed)
     hw, records, timings = args.latent_size, [], []
     for p_idx, prompt in enumerate(prompts):
@@ -195,66 +190,69 @@ def main(argv=None):
         while accepted < args.num_samples and attempts < args.max_attempts:
             attempts += 1
             seed, guidance, sa_end, ca_end, edit_weight = hyper_draws(rs)
-            stages, t0 = {}, clock()
-            pieces = compute_diff(prompt["input"], prompt["output"])
-            for piece in pieces:
-                if piece.old != piece.new:
-                    piece.weight = edit_weight
-            ctx_old = encode_text(tokenizer([prompt["input"]]))
-            ctx_new = encode_text(tokenizer([prompt["output"]]))
-            ctx_un = encode_text(tokenizer([""]))
-            key_ctx, val_ctx = build_ptp_key_value(
-                pieces, tokenizer, lambda ids: encode_text(ids).float().cpu().numpy())
-            kv = (torch.as_tensor(key_ctx, device=dev), torch.as_tensor(val_ctx, device=dev))
-            t1 = clock()
-            stages["text"] = t1 - t0
+            stages = {}
+            with StageClock(dev, stages) as clock:
+                pieces = compute_diff(prompt["input"], prompt["output"])
+                for piece in pieces:
+                    if piece.old != piece.new:
+                        piece.weight = edit_weight
+                ctx_old = encode_text(tokenizer([prompt["input"]]))
+                ctx_new = encode_text(tokenizer([prompt["output"]]))
+                ctx_un = encode_text(tokenizer([""]))
+                key_ctx, val_ctx = build_ptp_key_value(
+                    pieces, tokenizer, lambda ids: encode_text(ids).float().cpu().numpy())
+                kv = (torch.as_tensor(key_ctx, device=dev), torch.as_tensor(val_ctx, device=dev))
+                clock.mark("text")
 
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            lat = torch.randn((1, args.num_frames, hw, hw, 4), generator=gen, device=dev)
-            # the reference's boundaries (`i < frac * steps`); at a few steps
-            # the two grids can meet, so phase 2 keeps at least one step
-            sa_steps = frac_phase_steps(sa_end, args.steps)
-            ca_steps = min(max(frac_phase_steps(ca_end, args.steps), sa_steps + 1), args.steps)
-            with torch.no_grad():
-                out = sample_fn(lambda x, t, c, share: unet(x, t, c, sa_share=share), tables,
-                                lat, ctx_new, ctx_old, kv, ctx_un, guidance_scale=guidance,
-                                sa_steps=sa_steps, ca_steps=ca_steps,
-                                noise=generator_noise(gen), timings=stages)
-                t2 = clock()
-                frames = {tag: vae.decode(z[0] / SD_SCALE_FACTOR).float().clamp(-1, 1)
-                          .cpu().numpy() for tag, z in (("0", out["latent_old"]),
-                                                        ("1", out["latent"]))}
-            t3 = clock()
-            stages.update(sample=t2 - t1, decode=t3 - t2)
+                gen = torch.Generator(device=dev).manual_seed(seed)
+                lat = torch.randn((1, args.num_frames, hw, hw, 4), generator=gen, device=dev)
+                # the reference's boundaries (`i < frac * steps`); at a few steps
+                # the two grids can meet, so phase 2 keeps at least one step
+                sa_steps = frac_phase_steps(sa_end, args.steps)
+                ca_steps = min(max(frac_phase_steps(ca_end, args.steps), sa_steps + 1),
+                               args.steps)
+                with torch.no_grad():
+                    out = sample_fn(lambda x, t, c, share: unet(x, t, c, sa_share=share),
+                                    tables, lat, ctx_new, ctx_old, kv, ctx_un,
+                                    guidance_scale=guidance, sa_steps=sa_steps,
+                                    ca_steps=ca_steps, noise=generator_noise(gen),
+                                    timings=stages)
+                    clock.mark("sample")
+                    frames = {tag: vae.decode(z[0] / SD_SCALE_FACTOR).float().clamp(-1, 1)
+                              .cpu().numpy() for tag, z in (("0", out["latent_old"]),
+                                                            ("1", out["latent"]))}
+                clock.mark("decode")
 
-            if clip_metric is not None:
-                s = clip_metric(frames["0"], frames["1"], [prompt["input"]], [prompt["output"]])
-                scores = dict(sim_0=float(np.mean(s["sim_0"])), sim_1=float(np.mean(s["sim_1"])),
-                              sim_dir=float(np.mean(s["sim_direction"])),
-                              sim_image=float(np.mean(s["sim_image"])))
-                ok = all(scores[k] > CLIP_SCORE_GATES[k]
-                         for k in ("sim_0", "sim_1", "sim_dir", "sim_image"))
-            else:
-                scores = dict(sim_0=1.0, sim_1=1.0, sim_dir=1.0, sim_image=1.0)
-                ok = True
-            t4 = clock()
-            record = dict(seed=seed, guidance=guidance, sa_end=sa_end, ca_end=ca_end,
-                          edit_weight=edit_weight, ptp_version=args.ptp_version, accepted=ok,
-                          **scores)
-            with open(meta_path, "a") as f:
-                f.write(json.dumps(record) + "\n")
-            if ok:
-                import cv2
+                if clip_metric is not None:
+                    s = clip_metric(frames["0"], frames["1"], [prompt["input"]],
+                                    [prompt["output"]])
+                    scores = dict(sim_0=float(np.mean(s["sim_0"])),
+                                  sim_1=float(np.mean(s["sim_1"])),
+                                  sim_dir=float(np.mean(s["sim_direction"])),
+                                  sim_image=float(np.mean(s["sim_image"])))
+                    ok = all(scores[k] > CLIP_SCORE_GATES[k]
+                             for k in ("sim_0", "sim_1", "sim_dir", "sim_image"))
+                else:
+                    scores = dict(sim_0=1.0, sim_1=1.0, sim_dir=1.0, sim_image=1.0)
+                    ok = True
+                clock.mark("score")
+                record = dict(seed=seed, guidance=guidance, sa_end=sa_end, ca_end=ca_end,
+                              edit_weight=edit_weight, ptp_version=args.ptp_version,
+                              accepted=ok, **scores)
+                with open(meta_path, "a") as f:
+                    f.write(json.dumps(record) + "\n")
+                if ok:
+                    import cv2
 
-                for tag in ("0", "1"):
-                    for i, fr in enumerate(to_uint8(frames[tag])):
-                        cv2.imwrite(os.path.join(out_dir, "image", f"{seed}_{tag}_{i:04d}.jpg"),
-                                    cv2.cvtColor(fr, cv2.COLOR_RGB2BGR))
-                save_gif(frames["1"], os.path.join(out_dir, f"{seed}.gif"))
-                accepted += 1
-            t5 = clock()
-            stages.update(score=t4 - t3, write=t5 - t4, pair=t5 - t0, sa_steps=sa_steps,
-                          ca_steps=ca_steps)
+                    for tag in ("0", "1"):
+                        for i, fr in enumerate(to_uint8(frames[tag])):
+                            cv2.imwrite(os.path.join(out_dir, "image",
+                                                     f"{seed}_{tag}_{i:04d}.jpg"),
+                                        cv2.cvtColor(fr, cv2.COLOR_RGB2BGR))
+                    save_gif(frames["1"], os.path.join(out_dir, f"{seed}.gif"))
+                    accepted += 1
+                clock.mark("write")
+            stages.update(pair=clock.total, sa_steps=sa_steps, ca_steps=ca_steps)
             records.append(record)
             timings.append(stages)
             print(f"attempt {attempts} seed {seed}: {'accepted' if ok else 'rejected'}; "

@@ -21,6 +21,15 @@ samples a step from its own stream (``draw_seed``), the optimizer
 state is sharded over the ranks, and rank 0 alone logs, validates and
 checkpoints. Batches are assembled ahead by a ``PrefetchLoader`` thread,
 pinned, and copied to the GPU without blocking.
+
+Each ``metrics.jsonl`` record of a step carries, beside ``step_time_s``,
+the host milliseconds of its parts from the tracer's spans
+(``utils/tracing.py``): ``forward_ms`` (the encodes and the UNet forward
+of its microbatches), ``backward_ms``, ``update_ms`` (gradient
+accumulation, all-reduce, optimizer and the copy into the model),
+``loss_sync_ms`` (the wait for the loss, i.e. for the device),
+``loader_wait_ms`` and ``loader_produce_ms`` (its batch's making in the
+loader's thread).
 """
 
 from __future__ import annotations
@@ -54,6 +63,31 @@ def build_parser() -> argparse.ArgumentParser:
                         "autocast: more memory; matmuls and convolutions in bf16 as with "
                         "bf16-stored models, norms and biases in float32")
     return p
+
+
+# a metrics.jsonl record's host ms of its step's parts: the tracer's spans
+# of that step (``training/trainer.py``), summed over its microbatches
+STEP_HOST_MS = {"forward_ms": ("train.encode", "train.forward"),
+                "backward_ms": ("train.backward",),
+                "update_ms": ("train.accumulate", "train.all_reduce", "train.optimizer",
+                              "train.push_params"),
+                "loss_sync_ms": ("train.loss_sync",)}
+
+
+def step_host_ms(step: int) -> dict:
+    """Host ms of ``step``'s parts (``STEP_HOST_MS``), of the loader's
+    wait for the step's batch (``loader_wait_ms``) and of that batch's
+    making in the loader's thread (``loader_produce_ms``)."""
+    from insv2v_torch.utils import tracing
+
+    out = {k: round(sum(tracing.unit_ms(n, step) for n in names), 3)
+           for k, names in STEP_HOST_MS.items()}
+    waits = tracing.records("loader.wait")
+    if waits:
+        wait = waits[-1]
+        out["loader_wait_ms"] = round(wait.host_ms, 3)
+        out["loader_produce_ms"] = round(tracing.unit_ms("loader.produce", wait.unit), 3)
+    return out
 
 
 class JsonlLogger:
@@ -221,11 +255,12 @@ def _run(args, dev, group):
             t0 = time.perf_counter()
             host = next(loader)
             batch = {k: v.to(dev, non_blocking=True) for k, v in host.items()}
+            step = state.step
             state, metrics = trainer.train_step(state, batch, gen)
             dt = time.perf_counter() - t0
             if rank0:
                 logger.log({"step": state.step, "train_loss": metrics["train_loss"],
-                            "step_time_s": dt})
+                            "step_time_s": dt, **step_host_ms(step)})
             say(f"step {state.step}: loss={metrics['train_loss']:.4f} ({dt:.1f}s)")
             if validate is not None and state.step % val_every == 0 and rank0:
                 vb = {k: v[:micro].numpy() for k, v in host.items()}

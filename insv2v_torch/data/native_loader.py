@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import queue
 import subprocess
@@ -30,6 +31,8 @@ from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
+
+from insv2v_torch.utils.tracing import span
 
 __all__ = ["SOURCE", "library_path", "load", "normalize_frames", "resize_normalize",
            "crop_resize_normalize", "normalize_frames_reference",
@@ -210,13 +213,17 @@ class PrefetchLoader:
     worker thread. ``StopIteration`` from ``batch_fn`` ends the iteration;
     any other exception there is raised to the consumer at the batch it
     would have made. ``close()`` stops the worker and drains the queue;
-    the loader is also a context manager that closes on exit."""
+    the loader is also a context manager that closes on exit. Spans: the
+    worker's ``loader.produce`` around each ``batch_fn()`` and the
+    consumer's ``loader.wait`` around each take, both with the batch's
+    index as their unit."""
 
     def __init__(self, batch_fn: Callable[[], object], depth: int = 2):
         self._fn = batch_fn
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._done = False
+        self._taken = 0
         self._thread = threading.Thread(target=self._worker, name="PrefetchLoader",
                                         daemon=True)
         self._thread.start()
@@ -231,9 +238,12 @@ class PrefetchLoader:
         return False
 
     def _worker(self):
-        while not self._stop.is_set():
+        for i in itertools.count():
+            if self._stop.is_set():
+                return
             try:
-                batch = self._fn()
+                with span("loader.produce", unit=i):
+                    batch = self._fn()
             except StopIteration:
                 self._put(_END)
                 return
@@ -249,7 +259,9 @@ class PrefetchLoader:
     def __next__(self):
         if self._done:
             raise StopIteration
-        item = self._q.get()
+        with span("loader.wait", unit=self._taken):
+            item = self._q.get()
+        self._taken += 1
         if item is _END:
             self._done = True
             raise StopIteration

@@ -31,6 +31,7 @@ from insv2v_torch.diffusion.schedules import DiffusionSchedule, make_sampler_tab
 from insv2v_torch.models.vae import SD_SCALE_FACTOR
 from insv2v_torch.ops.resize import warp_image
 from insv2v_torch.utils.flow import get_flow_estimator, window_flows
+from insv2v_torch.utils.tracing import StageClock
 
 __all__ = ["VideoEditor", "GeneratorNoise"]
 
@@ -136,81 +137,58 @@ class VideoEditor:
         ``get_flow_estimator("auto")`` on the editor's device).
         ``timings``, when given, receives the wall seconds of each stage,
         of each window's denoise (``window_k``) and of each window's flow
-        (``flows_k``; the device is synchronised at stage ends)."""
+        (``flows_k``; the device is synchronised at stage ends), and the
+        call's spans get device intervals (``utils/tracing.py``)."""
         if use_motion_compensation and flow_estimator is None:
             flow_estimator = get_flow_estimator(device=self.device)
-        clock = _StageClock(self.device, timings)
-        noise = noise or GeneratorNoise(seed, self.device)
-        prompts = [edit_prompt] if isinstance(edit_prompt, str) else list(edit_prompt)
-        b = len(prompts)
+        with StageClock(self.device, timings) as clock:
+            noise = noise or GeneratorNoise(seed, self.device)
+            prompts = [edit_prompt] if isinstance(edit_prompt, str) else list(edit_prompt)
+            b = len(prompts)
 
-        text_cond = self.encode_text(prompts)
-        text_uncond = self.encode_text([negative_prompt]).expand_as(text_cond)
-        clock.mark("text")
-        cond = self.encode_video(frames, noise)[None]  # (1, F, h, w, 4)
-        cond = cond.expand((b,) + cond.shape[1:])
-        clock.mark("vae_encode")
+            text_cond = self.encode_text(prompts)
+            text_uncond = self.encode_text([negative_prompt]).expand_as(text_cond)
+            clock.mark("text")
+            cond = self.encode_video(frames, noise)[None]  # (1, F, h, w, 4)
+            cond = cond.expand((b,) + cond.shape[1:])
+            clock.mark("vae_encode")
 
-        windows = split_windows(frames.shape[0], frames_per_window, num_ref_frames)
-        _, _, h, w, ch = cond.shape
-        share = lambda t: t.expand((b,) + t.shape[1:])
-        step_noise = lambda i, shape: noise("step", shape)
-        run = lambda init, spec, ref, n_ref, flows=None, masks=None: sample_video_window(
-            self._unet, self.tables, init, cond[:, spec.start: spec.start + spec.num_frames],
-            text_cond, text_uncond, text_cfg=text_cfg, img_cfg=video_cfg,
-            video_start_index=spec.start, latent_ref=ref, num_ref_frames=n_ref,
-            noise_correct_step=noise_correct_step, flows=flows, flow_masks=masks,
-            step_noise=step_noise, share_batch_noise=True)["latent"]
+            windows = split_windows(frames.shape[0], frames_per_window, num_ref_frames)
+            _, _, h, w, ch = cond.shape
+            share = lambda t: t.expand((b,) + t.shape[1:])
+            step_noise = lambda i, shape: noise("step", shape)
+            run = lambda init, spec, ref, n_ref, flows=None, masks=None: sample_video_window(
+                self._unet, self.tables, init, cond[:, spec.start: spec.start + spec.num_frames],
+                text_cond, text_uncond, text_cfg=text_cfg, img_cfg=video_cfg,
+                video_start_index=spec.start, latent_ref=ref, num_ref_frames=n_ref,
+                noise_correct_step=noise_correct_step, flows=flows, flow_masks=masks,
+                step_noise=step_noise, share_batch_noise=True)["latent"]
 
-        w0 = windows[0]
-        init = share(noise("init", (1, w0.num_frames, h, w, ch)))
-        latent_pred = run(init, w0, None, 0)
-        outs = [latent_pred]
-        clock.mark("window_0")
-        for k, spec in enumerate(windows[1:], start=1):
-            n_new = spec.num_frames - spec.num_ref
-            new_noise = share(noise("window", (1, n_new, h, w, ch)))
-            # ref slots carry the previous window's *initial* noise; the
-            # anchor is the previous *output*
-            init = torch.cat([init[:, -spec.num_ref:], new_noise], dim=1)
-            ref = torch.cat([latent_pred[:, -spec.num_ref:],
-                             latent_pred.new_zeros((b, n_new, h, w, ch))], dim=1)
-            flows = masks = None
-            if use_motion_compensation:
-                flows, masks = self._flows_and_masks(
-                    flow_estimator, frames[spec.start: spec.start + spec.num_frames],
-                    spec.num_ref, (h, w))
-                clock.mark(f"flows_{k}")
-            latent_pred = run(init, spec, ref, spec.num_ref, flows, masks)
-            outs.append(latent_pred[:, spec.num_ref:])
-            clock.mark(f"window_{k}")
+            w0 = windows[0]
+            init = share(noise("init", (1, w0.num_frames, h, w, ch)))
+            latent_pred = run(init, w0, None, 0)
+            outs = [latent_pred]
+            clock.mark("window_0")
+            for k, spec in enumerate(windows[1:], start=1):
+                n_new = spec.num_frames - spec.num_ref
+                new_noise = share(noise("window", (1, n_new, h, w, ch)))
+                # ref slots carry the previous window's *initial* noise; the
+                # anchor is the previous *output*
+                init = torch.cat([init[:, -spec.num_ref:], new_noise], dim=1)
+                ref = torch.cat([latent_pred[:, -spec.num_ref:],
+                                 latent_pred.new_zeros((b, n_new, h, w, ch))], dim=1)
+                flows = masks = None
+                if use_motion_compensation:
+                    flows, masks = self._flows_and_masks(
+                        flow_estimator, frames[spec.start: spec.start + spec.num_frames],
+                        spec.num_ref, (h, w))
+                    clock.mark(f"flows_{k}")
+                latent_pred = run(init, spec, ref, spec.num_ref, flows, masks)
+                outs.append(latent_pred[:, spec.num_ref:])
+                clock.mark(f"window_{k}")
 
-        edited = torch.cat(outs, dim=1)  # (B, F, h, w, 4)
-        decoded = self.decode_latents(edited.reshape((-1,) + edited.shape[2:]))
-        clock.mark("vae_decode")
-        decoded = decoded.reshape(tuple(edited.shape[:2]) + decoded.shape[1:])
-        return decoded[0] if isinstance(edit_prompt, str) else decoded
-
-
-class _StageClock:
-    """Wall seconds per stage into ``timings``, synchronising the device
-    at each mark; does nothing when ``timings`` is None."""
-
-    def __init__(self, device: torch.device, timings: Optional[dict]):
-        import time
-
-        self._now = time.perf_counter
-        self.device, self.timings = device, timings
-        self.t = self._sync_now()
-
-    def _sync_now(self):
-        if self.timings is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return self._now()
-
-    def mark(self, name: str):
-        if self.timings is None:
-            return
-        t = self._sync_now()
-        self.timings[name] = t - self.t
-        self.t = t
+            edited = torch.cat(outs, dim=1)  # (B, F, h, w, 4)
+            decoded = self.decode_latents(edited.reshape((-1,) + edited.shape[2:]))
+            clock.mark("vae_decode")
+            decoded = decoded.reshape(tuple(edited.shape[:2]) + decoded.shape[1:])
+            return decoded[0] if isinstance(edit_prompt, str) else decoded

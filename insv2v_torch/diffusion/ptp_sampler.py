@@ -30,8 +30,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from insv2v_torch.diffusion.pipeline import _StageClock
 from insv2v_torch.diffusion.schedules import SamplerTables, sampler_step
+from insv2v_torch.utils.tracing import StageClock, span
 
 __all__ = ["sample_ptp_pair", "sample_ptp_pair_v1", "frac_phase_steps", "generator_noise"]
 
@@ -71,40 +71,48 @@ def _sample_ptp(unet: UNetFn, tables: SamplerTables, latent, context_new, contex
     gs = float(guidance_scale)
     cfg = lambda e_uncond, e_cond: e_uncond + gs * (e_cond - e_uncond)
     halves = lambda e: e.float().chunk(2, dim=0)
-    clock = _StageClock(latent.device, timings)
     old = new = latent.float()
     x0_old = x0_new = latent
 
     def timestep(i):
         return torch.tensor(int(tables.timesteps[i]), device=latent.device)
 
-    for i in range(sa_end):
-        t = timestep(i)
-        n_old, n_new = noise(i, tuple(old.shape))
-        if joint_phase1:
-            ctx4 = torch.cat([uncond_context, uncond_context, context_old, context_new])
-            eu_old, eu_new, ec_old, ec_new = unet(
-                torch.cat([old, new, old, new]), t, ctx4, True).float().chunk(4, dim=0)
-            old, x0_old = sampler_step(tables, old, cfg(eu_old, ec_old), i, n_old)
-            new, x0_new = sampler_step(tables, new, cfg(eu_new, ec_new), i, n_new)
-        else:
-            e2 = unet(torch.cat([old, old]), t, torch.cat([uncond_context, context_old]), False)
-            old, x0_old = sampler_step(tables, old, cfg(*halves(e2)), i, n_old)
-            new, x0_new = old, x0_old
-    clock.mark("phase1")
-    ctx_old2 = torch.cat([uncond_context, context_old])
-    kv2 = (torch.cat([uncond_context, context_kv[0]]), torch.cat([uncond_context, context_kv[1]]))
-    ctx_new2 = torch.cat([uncond_context, context_new])
-    for i in range(sa_end, s):
-        t = timestep(i)
-        n_old, n_new = noise(i, tuple(old.shape))
-        e_old = unet(torch.cat([old, old]), t, ctx_old2, False)
-        e_new = unet(torch.cat([new, new]), t, kv2 if i < ca_end else ctx_new2, False)
-        old, x0_old = sampler_step(tables, old, cfg(*halves(e_old)), i, n_old)
-        new, x0_new = sampler_step(tables, new, cfg(*halves(e_new)), i, n_new)
-        if i + 1 == ca_end:
-            clock.mark("phase2")
-    clock.mark("phase3")
+    with StageClock(latent.device, timings) as clock:
+        for i in range(sa_end):
+            with span("sampler.step"):
+                t = timestep(i)
+                n_old, n_new = noise(i, tuple(old.shape))
+                if joint_phase1:
+                    ctx4 = torch.cat([uncond_context, uncond_context, context_old, context_new])
+                    with span("sampler.unet"):
+                        e4 = unet(torch.cat([old, new, old, new]), t, ctx4, True)
+                    eu_old, eu_new, ec_old, ec_new = e4.float().chunk(4, dim=0)
+                    old, x0_old = sampler_step(tables, old, cfg(eu_old, ec_old), i, n_old)
+                    new, x0_new = sampler_step(tables, new, cfg(eu_new, ec_new), i, n_new)
+                else:
+                    with span("sampler.unet"):
+                        e2 = unet(torch.cat([old, old]), t,
+                                  torch.cat([uncond_context, context_old]), False)
+                    old, x0_old = sampler_step(tables, old, cfg(*halves(e2)), i, n_old)
+                    new, x0_new = old, x0_old
+        clock.mark("phase1")
+        ctx_old2 = torch.cat([uncond_context, context_old])
+        kv2 = (torch.cat([uncond_context, context_kv[0]]),
+               torch.cat([uncond_context, context_kv[1]]))
+        ctx_new2 = torch.cat([uncond_context, context_new])
+        for i in range(sa_end, s):
+            with span("sampler.step"):
+                t = timestep(i)
+                n_old, n_new = noise(i, tuple(old.shape))
+                with span("sampler.unet"):
+                    e_old = unet(torch.cat([old, old]), t, ctx_old2, False)
+                    e_new = unet(torch.cat([new, new]), t, kv2 if i < ca_end else ctx_new2,
+                                 False)
+                old, x0_old = sampler_step(tables, old, cfg(*halves(e_old)), i, n_old)
+                new, x0_new = sampler_step(tables, new, cfg(*halves(e_new)), i, n_new)
+            if i + 1 == ca_end:
+                clock.mark("phase2")
+        clock.mark("phase3")
     return {"latent": new, "latent_old": old, "pred_x0": x0_new, "pred_x0_old": x0_old}
 
 
@@ -119,7 +127,8 @@ def sample_ptp_pair(unet: UNetFn, tables: SamplerTables, latent: torch.Tensor,
     shared initial noise; contexts (B, L, D); phase boundaries as fractions
     of the steps or, overriding them, as step counts. ``timings``, when
     given, receives the wall seconds of each phase (``phase1``..``phase3``,
-    the device synchronised at each end). Returns the new (``latent``) and
+    the device synchronised at each end), and the call's spans get device
+    intervals (``utils/tracing.py``). Returns the new (``latent``) and
     old (``latent_old``) final latents and the last predicted x0 of each."""
     return _sample_ptp(unet, tables, latent, context_new, context_old, context_kv,
                        uncond_context, guidance_scale, sa_end_time, ca_end_time, sa_steps,

@@ -32,6 +32,7 @@ import torch
 from insv2v_torch.diffusion.schedules import SamplerTables, sampler_step
 from insv2v_torch.ops.resize import warp_image
 from insv2v_torch.parallel.dist import frame_group
+from insv2v_torch.utils.tracing import span
 
 __all__ = ["rescale_noise_cfg", "dual_cfg_eps", "sample_video_window", "sample_plain",
            "sample_edit_ref_image", "split_windows", "WindowSpec"]
@@ -147,33 +148,35 @@ def sample_video_window(unet: UnetApply, tables: SamplerTables, latent, img_cond
     lat = latent.float()
     all_latent, all_x0 = [], []
     for i in range(num_steps):
-        eps = dual_cfg_eps(unet, lat, img_cond, int(tables.timesteps[i]), text_uncond,
-                           text_cond, text_cfg, img_cfg, video_start_index,
-                           guidance_rescale)
-        if latent_ref is not None and i < correct_until:
-            a_t = float(tables.alpha_prod[i])
-            noise_ref = (lat - math.sqrt(a_t) * latent_ref.float()) / math.sqrt(1.0 - a_t)
-            delta_ref = (noise_ref - eps) * ref_mask  # zero on non-ref frames
-            if flows is None:
-                n_ref = max(float(num_ref_frames), 1.0)
-                ref_sum = delta_ref.sum(dim=1, keepdim=True)
-                if group is not None:
-                    group.all_reduce_sum(ref_sum)
-                prop = ref_sum / n_ref
-            else:
-                full = delta_ref if group is None else group.all_gather_dim(delta_ref, 1)
-                prop = _flow_propagate(full, flows, flow_masks)
-            eps = eps + ref_mask * delta_ref + (1.0 - ref_mask) * prop
-        nshape = ((1,) if share_batch_noise else lat.shape[:1]) + (
-            f * (1 if group is None else group.size),) + tuple(lat.shape[2:])
-        noise = _step_noise(tables, i, step_noise, nshape, lat)
-        if noise is not None and group is not None:
-            noise = noise[:, frames]
-        lat, x0 = sampler_step(tables, lat, eps, i,
-                               None if noise is None else noise.expand(lat.shape))
-        if return_all:
-            all_latent.append(lat)
-        all_x0.append(x0)
+        with span("sampler.step"):
+            with span("sampler.unet"):
+                eps = dual_cfg_eps(unet, lat, img_cond, int(tables.timesteps[i]), text_uncond,
+                                   text_cond, text_cfg, img_cfg, video_start_index,
+                                   guidance_rescale)
+            if latent_ref is not None and i < correct_until:
+                a_t = float(tables.alpha_prod[i])
+                noise_ref = (lat - math.sqrt(a_t) * latent_ref.float()) / math.sqrt(1.0 - a_t)
+                delta_ref = (noise_ref - eps) * ref_mask  # zero on non-ref frames
+                if flows is None:
+                    n_ref = max(float(num_ref_frames), 1.0)
+                    ref_sum = delta_ref.sum(dim=1, keepdim=True)
+                    if group is not None:
+                        group.all_reduce_sum(ref_sum)
+                    prop = ref_sum / n_ref
+                else:
+                    full = delta_ref if group is None else group.all_gather_dim(delta_ref, 1)
+                    prop = _flow_propagate(full, flows, flow_masks)
+                eps = eps + ref_mask * delta_ref + (1.0 - ref_mask) * prop
+            nshape = ((1,) if share_batch_noise else lat.shape[:1]) + (
+                f * (1 if group is None else group.size),) + tuple(lat.shape[2:])
+            noise = _step_noise(tables, i, step_noise, nshape, lat)
+            if noise is not None and group is not None:
+                noise = noise[:, frames]
+            lat, x0 = sampler_step(tables, lat, eps, i,
+                                   None if noise is None else noise.expand(lat.shape))
+            if return_all:
+                all_latent.append(lat)
+            all_x0.append(x0)
     out = {"latent": lat, "pred_x0": all_x0[-1]}
     if return_all:
         out.update(all_latent=torch.stack(all_latent), all_pred=torch.stack(all_x0))

@@ -54,6 +54,7 @@ from insv2v_torch.diffusion.schedules import DiffusionSchedule, add_noise
 from insv2v_torch.models.vae import SD_SCALE_FACTOR
 from insv2v_torch.parallel.dist import Group
 from insv2v_torch.training.quantized_adam import Adam8bit
+from insv2v_torch.utils.tracing import span
 
 __all__ = ["TrainConfig", "TrainState", "motion_param_mask", "cast_frozen_to_bf16",
            "make_optimizer", "Trainer"]
@@ -188,34 +189,36 @@ class Trainer:
         def draw(key, make):
             return torch.as_tensor(given[key], device=dev) if key in given else make()
 
-        inp = torch.as_tensor(micro["input_video"], device=dev)
-        edited = torch.as_tensor(micro["edited_video"], device=dev)
-        b, f = inp.shape[:2]
-        with torch.no_grad(), self.compute():
-            text_emb = self.text_encoder(torch.as_tensor(micro["prompt_ids"], device=dev))
+        with span("train.encode"):
+            inp = torch.as_tensor(micro["input_video"], device=dev)
+            edited = torch.as_tensor(micro["edited_video"], device=dev)
+            b, f = inp.shape[:2]
+            with torch.no_grad(), self.compute():
+                text_emb = self.text_encoder(torch.as_tensor(micro["prompt_ids"], device=dev))
 
-            def encode(video, key):
-                post = self.vae.posterior(video.reshape((b * f,) + video.shape[2:]))
-                eps = draw(key, lambda: torch.randn(post.mean.shape, generator=generator,
-                                                    device=dev))
-                z = post.sample(eps)
-                return z.reshape((b, f) + z.shape[1:])
+                def encode(video, key):
+                    post = self.vae.posterior(video.reshape((b * f,) + video.shape[2:]))
+                    eps = draw(key, lambda: torch.randn(post.mean.shape, generator=generator,
+                                                        device=dev))
+                    z = post.sample(eps)
+                    return z.reshape((b, f) + z.shape[1:])
 
-            # cond latent: unscaled, a cond_image_dropout share dropped to zero
-            cond = encode(inp, "enc_cond")
-            drop = draw("drop", lambda: torch.rand(b, generator=generator, device=dev)
-                        < cfg.cond_image_dropout)
-            cond = torch.where(drop.reshape(b, 1, 1, 1, 1), 0.0, cond)
-            # the diffused target latent: scaled, q-sampled
-            x0 = encode(edited, "enc_edit") * cfg.scale_factor
-            eps = draw("eps", lambda: torch.randn(x0.shape, generator=generator, device=dev))
-            t = draw("t", lambda: torch.randint(0, self.schedule.num_train_timesteps, (b,),
-                                                generator=generator, device=dev))
-            sample = torch.cat([add_noise(self.schedule, x0, eps, t), cond], dim=-1)
-        with self.compute():
-            pred = self.unet(sample, t, text_emb, split_skip=False)
-        target = eps if cfg.prediction_type == "epsilon" else x0
-        return _loss(pred, target, cfg.loss_type)
+                # cond latent: unscaled, a cond_image_dropout share dropped to zero
+                cond = encode(inp, "enc_cond")
+                drop = draw("drop", lambda: torch.rand(b, generator=generator, device=dev)
+                            < cfg.cond_image_dropout)
+                cond = torch.where(drop.reshape(b, 1, 1, 1, 1), 0.0, cond)
+                # the diffused target latent: scaled, q-sampled
+                x0 = encode(edited, "enc_edit") * cfg.scale_factor
+                eps = draw("eps", lambda: torch.randn(x0.shape, generator=generator, device=dev))
+                t = draw("t", lambda: torch.randint(0, self.schedule.num_train_timesteps, (b,),
+                                                    generator=generator, device=dev))
+                sample = torch.cat([add_noise(self.schedule, x0, eps, t), cond], dim=-1)
+        with span("train.forward"):
+            with self.compute():
+                pred = self.unet(sample, t, text_emb, split_skip=False)
+            target = eps if cfg.prediction_type == "epsilon" else x0
+            return _loss(pred, target, cfg.loss_type)
 
     def accumulate_grads(self, state: TrainState, batch: Mapping,
                          generator: Optional[torch.Generator] = None,
@@ -240,13 +243,16 @@ class Trainer:
         for i in range(accum):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             loss = self.microbatch_loss(micro, draws[i] if draws else None, generator)
-            grads = torch.autograd.grad(loss, train, allow_unused=True,
-                                        materialize_grads=True)
-            for acc, g in zip(g_sum, grads):
-                acc.add_(g.float())
-            loss_sum += loss.detach()
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, train, allow_unused=True,
+                                            materialize_grads=True)
+            with span("train.accumulate"):
+                for acc, g in zip(g_sum, grads):
+                    acc.add_(g.float())
+                loss_sum += loss.detach()
         if self.group is not None:
-            self.group.all_reduce_mean(bucket)
+            with span("train.all_reduce"):
+                self.group.all_reduce_mean(bucket)
         bucket.div_(accum)
         return loss_sum, g_sum
 
@@ -254,12 +260,18 @@ class Trainer:
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Sequence[Mapping]] = None) -> Tuple[TrainState, Dict]:
         """One optimizer step over the batch; updates ``state`` and the
-        model's motion parameters in place."""
-        loss, grads = self.accumulate_grads(state, batch, generator, draws)
-        for master, g in zip(state.params.values(), grads):
-            master.grad = g
-        state.optimizer.step()
-        state.optimizer.zero_grad(set_to_none=True)
-        self.push_params(state)
-        state.step += 1
-        return state, {"train_loss": float(loss)}
+        model's motion parameters in place. Its spans (``train.*``) carry the
+        step number as their unit."""
+        with span("train.step", unit=state.step):
+            loss, grads = self.accumulate_grads(state, batch, generator, draws)
+            with span("train.optimizer"):
+                for master, g in zip(state.params.values(), grads):
+                    master.grad = g
+                state.optimizer.step()
+                state.optimizer.zero_grad(set_to_none=True)
+            with span("train.push_params"):
+                self.push_params(state)
+            state.step += 1
+            with span("train.loss_sync"):
+                loss = float(loss)
+        return state, {"train_loss": loss}

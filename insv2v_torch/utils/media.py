@@ -39,10 +39,13 @@ def save_gif(frames: np.ndarray, path: str, fps: int = 8) -> None:
     """frames (F, H, W, 3) in [-1, 1] -> an animated GIF that loops."""
     from PIL import Image
 
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    images = [Image.fromarray(f) for f in to_uint8(frames)]
-    images[0].save(path, save_all=True, append_images=images[1:], duration=1000.0 / fps,
-                   loop=0)
+    from insv2v_torch.utils.tracing import span
+
+    with span("media.save_gif"):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        images = [Image.fromarray(f) for f in to_uint8(frames)]
+        images[0].save(path, save_all=True, append_images=images[1:], duration=1000.0 / fps,
+                       loop=0)
 
 
 def load_gif(path: str) -> np.ndarray:

@@ -56,8 +56,8 @@ NO_COUNTERPART = {
     "utils/registry.py": "the Flax factory's name registry; the port's factory builds from "
                          "the YAML's params directly",
     "utils/profiling.py": "PhaseTimer and device_trace are used by no module of the JAX "
-                          "package; the port records stage_seconds, and chip_smoke.py "
-                          "traces with torch.profiler",
+                          "package; the port's one tracer is utils/tracing.py (host spans "
+                          "always, CUDA-event device intervals where timings are asked for)",
     "utils/baseline.py": "the A100 throughput estimate of the JAX bench; it belongs to the "
                          "port's bench, which is still to come",
     "parallel/mesh.py:make_mesh": _GSPMD,
