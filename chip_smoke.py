@@ -2201,8 +2201,10 @@ def phase_dp_cli(args):
         whole = sorted(saved["optimizer"]["state"]) == list(range(n))
         log(f"dp cli: {RANKS} ranks, 2 steps, --frozen-f32: {wall:.1f} s wall; files {files}; "
             f"metrics steps {[rec['step'] for rec in records]}, losses "
-            f"{[round(rec['train_loss'], 6) for rec in records]}; checkpoint of {n} masters "
-            f"with the whole optimizer state: {whole}")
+            f"{[round(rec['train_loss'], 6) for rec in records]}; CUDA-graph captures and "
+            f"replays so far "
+            f"{[(rec.get('graph_captures'), rec.get('graph_replays')) for rec in records]}; "
+            f"checkpoint of {n} masters with the whole optimizer state: {whole}")
         ok = (files == ["metrics.jsonl", "step_00000002.pt"]
               and [rec["step"] for rec in records] == [1, 2]
               and all(math.isfinite(rec["train_loss"]) for rec in records) and whole

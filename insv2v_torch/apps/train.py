@@ -29,7 +29,9 @@ of its microbatches), ``backward_ms``, ``update_ms`` (gradient
 accumulation, all-reduce, optimizer and the copy into the model),
 ``loss_sync_ms`` (the wait for the loss, i.e. for the device),
 ``loader_wait_ms`` and ``loader_produce_ms`` (its batch's making in the
-loader's thread).
+loader's thread), and the run's counts so far of the trainer's CUDA-graph
+captures and replays (``graph_captures``, ``graph_replays``: spans
+``train.graph_capture`` and ``train.graph_replay``; both 0 on the CPU).
 """
 
 from __future__ import annotations
@@ -175,6 +177,7 @@ def _run(args, dev, group):
     from insv2v_torch.parallel.dist import gather_optimizer_state, same_on_all_ranks
     from insv2v_torch.text.tokenizer import get_tokenizer
     from insv2v_torch.training.trainer import TrainConfig, Trainer
+    from insv2v_torch.utils import tracing
     from insv2v_torch.utils.checkpoint import (load_into, load_pipeline_state_dicts,
                                                restore_train_state, save_train_state)
     from insv2v_torch.utils.config import load_config
@@ -260,7 +263,9 @@ def _run(args, dev, group):
             dt = time.perf_counter() - t0
             if rank0:
                 logger.log({"step": state.step, "train_loss": metrics["train_loss"],
-                            "step_time_s": dt, **step_host_ms(step)})
+                            "step_time_s": dt, **step_host_ms(step),
+                            "graph_captures": tracing.count("train.graph_capture"),
+                            "graph_replays": tracing.count("train.graph_replay")})
             say(f"step {state.step}: loss={metrics['train_loss']:.4f} ({dt:.1f}s)")
             if validate is not None and state.step % val_every == 0 and rank0:
                 vb = {k: v[:micro].numpy() for k, v in host.items()}

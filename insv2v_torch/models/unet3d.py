@@ -249,6 +249,21 @@ class Transformer3DModel(nn.Module):
         return out.reshape(b, f, h, w, c) + x
 
 
+def _pe_table(dim: int, max_len: int, device=None) -> torch.Tensor:
+    """The sinusoidal PE table on ``device`` (default: the ambient one)."""
+    return torch.tensor(temporal_positional_encoding_table(dim, max_len), device=device)
+
+
+def _pe_to_weights_device(module: "VersatileAttention", _incompatible) -> None:
+    """After a state-dict load, the PE table is made anew where the weights
+    are: a module built on the meta device, then handed its weights with
+    ``assign=True``, would keep a meta table."""
+    device = module.to_q.weight.device
+    if module.pe.device != device:
+        max_len, dim = module.pe.shape
+        module.pe = _pe_table(dim, max_len, device)
+
+
 class VersatileAttention(CrossAttention):
     """Temporal self-attention with the sinusoidal PE, on the (B, P, F, C)
     stream: frames attended, each (pixel, head) on its own."""
@@ -256,9 +271,9 @@ class VersatileAttention(CrossAttention):
     def __init__(self, dim: int, heads: int, head_dim: int, max_len: int):
         super().__init__(dim, heads, head_dim)
         self.head_dim = head_dim
-        pe = torch.from_numpy(temporal_positional_encoding_table(dim, max_len))
         # regenerated from (dim, max_len), so kept out of the state dict
-        self.register_buffer("pe", pe, persistent=False)
+        self.register_buffer("pe", _pe_table(dim, max_len), persistent=False)
+        self.register_load_state_dict_post_hook(_pe_to_weights_device)
 
     def forward(self, x, video_start_index: int):
         b, p, f, c = x.shape

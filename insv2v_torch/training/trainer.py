@@ -39,12 +39,35 @@ five draws of a microbatch (the two posterior normals ``enc_cond`` and
 ``enc_edit``, the cond-drop mask ``drop``, ``eps`` and ``t``) come from a
 ``torch.Generator`` or are handed in through ``draws``, so a test can
 replay a JAX run's draws.
+
+CUDA graphs (``training/cuda_graphs.py``). On a CUDA device the UNet's
+training call and its backward to the motion parameters, remat's reruns
+and ``KernelGrad``'s twin recomputes inside it, are replayed from CUDA
+graphs captured at the first microbatch of each shape (span
+``train.graph_capture``; each forward replay is a ``train.graph_replay``):
+the host launches two graphs a microbatch where it dispatched the forward
+and the backward op by op. What stays eager, and why: the encodes, the
+draws, ``add_noise`` and the cond drop (they draw from the generator, and
+no RNG runs inside a capture), the loss, the per-leaf accumulation, the
+all-reduce, the optimizer and ``push_params`` (its in-place copy is what
+the next replay reads). The kernel wrappers' ``.launches`` count a
+replay's launches as the eager call's; the capturing microbatch adds those
+of the capture's warm-up (one eager forward and backward), so its counts
+and seconds hold the warm-up too. A graph is keyed by what the call can
+observe (shapes, dtypes, autocast, the parameters' storage, the modules'
+train/eval flags, ``unet.cfg``, the kernels' dispatch switches): a change
+of any captures anew. The prediction and the gradients are the graphs'
+static buffers, overwritten by the next replay: a microbatch's backward
+runs, and its gradients are added into the accumulators, before the next
+microbatch's forward, as ``accumulate_grads`` does. On the CPU the call is
+the model's own, as it always was.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -53,6 +76,7 @@ from torch.distributed.optim import ZeroRedundancyOptimizer
 from insv2v_torch.diffusion.schedules import DiffusionSchedule, add_noise
 from insv2v_torch.models.vae import SD_SCALE_FACTOR
 from insv2v_torch.parallel.dist import Group
+from insv2v_torch.training.cuda_graphs import GraphedCall
 from insv2v_torch.training.quantized_adam import Adam8bit
 from insv2v_torch.utils.tracing import span
 
@@ -140,6 +164,8 @@ class Trainer:
             beta_schedule=cfg.beta_schedule, num_train_timesteps=cfg.num_train_timesteps,
             beta_start=cfg.beta_start, beta_end=cfg.beta_end)
         self.device = next(unet.parameters()).device
+        # the training call, replayed from CUDA graphs on a CUDA device
+        self.unet_call = GraphedCall(functools.partial(unet, split_skip=False), unet)
 
     # --- state --------------------------------------------------------------
 
@@ -216,7 +242,7 @@ class Trainer:
                 sample = torch.cat([add_noise(self.schedule, x0, eps, t), cond], dim=-1)
         with span("train.forward"):
             with self.compute():
-                pred = self.unet(sample, t, text_emb, split_skip=False)
+                pred = self.unet_call(sample, t, text_emb)
             target = eps if cfg.prediction_type == "epsilon" else x0
             return _loss(pred, target, cfg.loss_type)
 

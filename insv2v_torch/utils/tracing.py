@@ -47,7 +47,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-__all__ = ["CAPACITY", "Span", "StageClock", "span", "snapshot", "records", "unit_ms", "clear"]
+__all__ = ["CAPACITY", "Span", "StageClock", "span", "snapshot", "records", "count", "unit_ms",
+           "clear", "kernel_wrappers"]
 
 CAPACITY = 4096  # records kept a name
 
@@ -270,6 +271,12 @@ def records(name: str) -> List[Span]:
     return ring.records() if ring is not None else []
 
 
+def count(name: str) -> int:
+    """How many ``name`` spans have closed, overwritten records included."""
+    ring = _rings.get(name)
+    return ring.count if ring is not None else 0
+
+
 def unit_ms(name: str, unit) -> float:
     """Host ms of ``name``'s newest run of records in ``unit``, summed."""
     total, seen = 0, False
@@ -282,13 +289,17 @@ def unit_ms(name: str, unit) -> float:
     return total / 1e6
 
 
-def _launches() -> Dict[str, int]:
-    """The kernel wrappers' launch counters."""
+def kernel_wrappers() -> tuple:
+    """The five kernel wrappers whose ``.launches`` count their launches."""
     from insv2v_torch.ops import attention, fused_ff, fused_norm
 
-    fns = (attention.flash_attention, attention.flash_attention_headfold,
-           fused_ff.fused_geglu_ff, attention.temporal_attention, fused_norm.fused_layer_norm)
-    return {f.__name__: f.launches for f in fns}
+    return (attention.flash_attention, attention.flash_attention_headfold,
+            fused_ff.fused_geglu_ff, attention.temporal_attention, fused_norm.fused_layer_norm)
+
+
+def _launches() -> Dict[str, int]:
+    """The kernel wrappers' launch counters."""
+    return {f.__name__: f.launches for f in kernel_wrappers()}
 
 
 def snapshot() -> dict:
