@@ -8,9 +8,11 @@ and defaults: 384 px, 32 frames sampled at 8 fps, 16-frame windows with 4
 ref frames, DDPM 20 steps, text CFG 7.5 and video CFG 1.2, noise
 correction over the first half of the steps, optical-flow motion
 compensation with ``--with-optical-flow``. The output GIF shows the input
-and the edit side by side. The models run in bf16 on the GPU (``--device
-cuda``, the default; it raises without one) or in float32 on the CPU
-(``--device cpu``).
+and the edit side by side. ``--config configs/insv2v_sdxl.yaml`` edits with
+the SDXL-scale model (its two text towers, the added size embedding and
+the VAE scale factor come from the config). The models run in bf16 on the
+GPU (``--device cuda``, the default; it raises without one) or in float32
+on the CPU (``--device cpu``).
 """
 
 from __future__ import annotations
@@ -55,22 +57,26 @@ def make_editor(config_path: str, ckpt, scheduler: str, steps: int, allow_random
 
     from insv2v_torch._device import resolve_device
     from insv2v_torch.diffusion.pipeline import VideoEditor
+    from insv2v_torch.models.vae import SD_SCALE_FACTOR
     from insv2v_torch.utils.checkpoint import load_into, load_pipeline_state_dicts
+    from insv2v_torch.utils.config import load_config
     from insv2v_torch.utils.factory import build_models
 
     if not ckpt and not allow_random:
         sys.exit("no checkpoint given; pass --allow-random-weights to smoke-test without weights")
     dev = resolve_device(device)
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    models = build_models(config_path, device=dev, dtype=dtype, seed=seed)
+    config = load_config(config_path)
+    models = build_models(config, device=dev, dtype=dtype, seed=seed)
     sds = load_pipeline_state_dicts(fused_ckpt=ckpt) if ckpt else {}
     missing = {"unet", "vae", "text"} - set(sds)
     if missing and ckpt:
         print(f"WARNING: checkpoint lacks {sorted(missing)}; they stay random-init "
               "(strict=False semantics)", file=sys.stderr)
     load_into(models, sds)
+    scale = (config.get("trainer") or {}).get("scale_factor", SD_SCALE_FACTOR)
     return VideoEditor(models["unet"], models["vae"], models["text_model"], scheduler=scheduler,
-                       num_steps=steps, device=dev, dtype=dtype)
+                       num_steps=steps, scale_factor=scale, device=dev, dtype=dtype)
 
 
 def main(argv=None):

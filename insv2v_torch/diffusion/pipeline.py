@@ -117,8 +117,18 @@ class VideoEditor:
         masks = warp_image(ones, flows.reshape(f * r, h, w, 2)).reshape(f, r, h, w, 1)
         return flows, masks
 
-    def _unet(self, sample, t, ctx, video_start_index):
-        return self.unet(sample, t, ctx, video_start_index=video_start_index)
+    def _unet(self, sample, t, ctx, video_start_index, added_cond=None):
+        return self.unet(sample, t, ctx, video_start_index=video_start_index,
+                         added_cond=added_cond)
+
+    def _added_cond(self, pooled_uncond, pooled_cond, height: int, width: int):
+        """The ``text_time`` inputs of the uncond and the cond branch: the
+        pooled embeddings and the size ids (original size, crop origin,
+        target size) of frames shown whole at their own size."""
+        ids = torch.tensor([[height, width, 0, 0, height, width]], dtype=torch.float32,
+                           device=self.device).expand(pooled_cond.shape[0], 6)
+        return ({"text_embeds": pooled_uncond.expand_as(pooled_cond), "time_ids": ids},
+                {"text_embeds": pooled_cond, "time_ids": ids})
 
     # --- public API --------------------------------------------------------
 
@@ -147,7 +157,13 @@ class VideoEditor:
             b = len(prompts)
 
             text_cond = self.encode_text(prompts)
-            text_uncond = self.encode_text([negative_prompt]).expand_as(text_cond)
+            text_uncond = self.encode_text([negative_prompt])
+            added = None
+            unet_cfg = getattr(self.unet, "cfg", None)
+            if getattr(unet_cfg, "addition_embed_type", None) == "text_time":
+                (text_cond, pooled), (text_uncond, pooled_uncond) = text_cond, text_uncond
+                added = self._added_cond(pooled_uncond, pooled, *frames.shape[1:3])
+            text_uncond = text_uncond.expand_as(text_cond)
             clock.mark("text")
             cond = self.encode_video(frames, noise)[None]  # (1, F, h, w, 4)
             cond = cond.expand((b,) + cond.shape[1:])
@@ -162,7 +178,7 @@ class VideoEditor:
                 text_cond, text_uncond, text_cfg=text_cfg, img_cfg=video_cfg,
                 video_start_index=spec.start, latent_ref=ref, num_ref_frames=n_ref,
                 noise_correct_step=noise_correct_step, flows=flows, flow_masks=masks,
-                step_noise=step_noise, share_batch_noise=True)["latent"]
+                step_noise=step_noise, share_batch_noise=True, added_cond=added)["latent"]
 
             w0 = windows[0]
             init = share(noise("init", (1, w0.num_frames, h, w, ch)))

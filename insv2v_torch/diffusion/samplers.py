@@ -64,12 +64,16 @@ def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float, group
 
 def dual_cfg_eps(unet: UnetApply, latent, img_cond, t: int, text_uncond, text_cond,
                  text_cfg: float, img_cfg: float, video_start_index: int,
-                 guidance_rescale: float = 0.0):
+                 guidance_rescale: float = 0.0, added_cond=None):
     """One fused 3xCFG UNet call + guidance combine::
 
             e1(uncond) | e2(img)  | e3(img+text)
       text      x      |    x     |     v
       img       x      |    v     |     v
+
+    ``added_cond`` (the SDXL UNet's ``text_time`` inputs), a pair of dicts
+    for the uncond and the cond text, goes to the UNet as a fifth argument
+    laid out as the contexts are; without it the UNet takes four.
     """
     b = latent.shape[0]
     lat_in = torch.cat([latent, latent, latent], dim=0)
@@ -77,7 +81,11 @@ def dual_cfg_eps(unet: UnetApply, latent, img_cond, t: int, text_uncond, text_co
     sample = torch.cat([lat_in, cond_in.to(lat_in.dtype)], dim=-1)
     ctx = torch.cat([text_uncond, text_uncond, text_cond], dim=0)
     t_b = torch.full((3 * b,), int(t), dtype=torch.int64, device=latent.device)
-    e1, e2, e3 = unet(sample, t_b, ctx, video_start_index).float().chunk(3, dim=0)
+    args = (sample, t_b, ctx, video_start_index)
+    if added_cond is not None:
+        uncond, cond = added_cond
+        args += ({k: torch.cat([uncond[k], uncond[k], cond[k]], dim=0) for k in cond},)
+    e1, e2, e3 = unet(*args).float().chunk(3, dim=0)
     eps = e1 + img_cfg * (e2 - e1) + text_cfg * (e3 - e2)
     if guidance_rescale > 0:
         eps = rescale_noise_cfg(eps, e1, guidance_rescale, frame_group())
@@ -119,7 +127,8 @@ def sample_video_window(unet: UnetApply, tables: SamplerTables, latent, img_cond
                         video_start_index: int = 0, latent_ref=None,
                         num_ref_frames: int = 0, noise_correct_step: float = 0.0,
                         flows=None, flow_masks=None, step_noise: Optional[Callable] = None,
-                        share_batch_noise: bool = False, return_all: bool = False) -> dict:
+                        share_batch_noise: bool = False, return_all: bool = False,
+                        added_cond=None) -> dict:
     """Denoise one window. First window: ``latent_ref=None``.
 
     Follow-up windows: ``latent`` enters with its first ``num_ref_frames``
@@ -131,7 +140,8 @@ def sample_video_window(unet: UnetApply, tables: SamplerTables, latent, img_cond
     (F, R, h, w, 1) (per query frame and ref frame, at latent resolution,
     step-invariant) the refs' deltas warped by the flows and averaged where
     the masks cover. ``share_batch_noise`` draws one step-noise field of
-    batch 1 and broadcasts it over the batch.
+    batch 1 and broadcasts it over the batch. ``added_cond`` as in
+    ``dual_cfg_eps``.
     """
     if (flows is None) != (flow_masks is None):
         raise ValueError("flows and flow_masks go together")
@@ -152,7 +162,7 @@ def sample_video_window(unet: UnetApply, tables: SamplerTables, latent, img_cond
             with span("sampler.unet"):
                 eps = dual_cfg_eps(unet, lat, img_cond, int(tables.timesteps[i]), text_uncond,
                                    text_cond, text_cfg, img_cfg, video_start_index,
-                                   guidance_rescale)
+                                   guidance_rescale, added_cond)
             if latent_ref is not None and i < correct_until:
                 a_t = float(tables.alpha_prod[i])
                 noise_ref = (lat - math.sqrt(a_t) * latent_ref.float()) / math.sqrt(1.0 - a_t)

@@ -4,7 +4,11 @@ Counterpart of ``models/clip_text.py`` in the JAX package, with the HF
 ``CLIPTextModel`` state-dict layout (``text_model.embeddings...``,
 ``text_model.encoder.layers.N...``, ``text_model.final_layer_norm``).
 The editor conditions on the last hidden state over all 77 positions:
-causal attention, quick_gelu MLP, final LayerNorm.
+causal attention, quick_gelu MLP, final LayerNorm. SDXL's first tower
+(``penultimate``) takes the state after the second-to-last layer, without
+the final LayerNorm (diffusers' ``hidden_states[-2]``). ``DualTextEncoder`` pairs it with OpenCLIP
+ViT-bigG/14 as SDXL conditions: the two sequences concatenated on the
+channel axis, and bigG's pooled embedding.
 """
 
 from __future__ import annotations
@@ -16,8 +20,9 @@ from torch import nn
 
 from insv2v_torch.models.unet3d import LayerNorm
 from insv2v_torch.ops.attention import attention
+from insv2v_torch.utils.tracing import span
 
-__all__ = ["ClipTextConfig", "ClipTextEncoder"]
+__all__ = ["ClipTextConfig", "ClipTextEncoder", "DualTextEncoder"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +34,8 @@ class ClipTextConfig:
     intermediate_size: int = 3072
     max_positions: int = 77
     layer_norm_eps: float = 1e-5
+    # the state after num_layers - 1 layers, without the final LayerNorm
+    penultimate: bool = False
 
     @classmethod
     def vit_l_14(cls) -> "ClipTextConfig":
@@ -118,6 +125,29 @@ class ClipTextEncoder(nn.Module):
         # causal mask, additive -inf above the diagonal; pad positions stay
         # attended from later positions, as in the reference
         mask = torch.full((s, s), float("-inf"), device=x.device).triu(1)[None, None]
+        if self.cfg.penultimate:
+            for layer in tm.encoder.layers[:-1]:
+                x = layer(x, mask)
+            return x
         for layer in tm.encoder.layers:
             x = layer(x, mask)
         return tm.final_layer_norm(x)
+
+
+class DualTextEncoder(nn.Module):
+    """SDXL's text conditioning: ``text_encoder`` (CLIP ViT-L/14) and
+    ``text_encoder_2`` (OpenCLIP ViT-bigG/14 with its projection) on the
+    same ids -> (context (B, S, D1 + D2), pooled (B, P)). Each tower runs
+    inside a span of its own (``text.clip_l``, ``text.openclip_bigg``)."""
+
+    def __init__(self, clip: ClipTextEncoder, openclip: nn.Module):
+        super().__init__()
+        self.text_encoder = clip
+        self.text_encoder_2 = openclip
+
+    def forward(self, input_ids: torch.Tensor):
+        with span("text.clip_l"):
+            first = self.text_encoder(input_ids)
+        with span("text.openclip_bigg"):
+            second, pooled = self.text_encoder_2(input_ids)
+        return torch.cat([first, second], dim=-1), pooled

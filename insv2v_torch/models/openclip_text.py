@@ -12,6 +12,13 @@ hidden sequence. Keys follow open_clip (``token_embedding.weight``,
 tower loads with ``load_state_dict`` (see ``openclip_text_state_dict``).
 The 77-token attention takes the plain path; the LayerNorms go through
 ``ops.norms.layer_norm`` (kernel D when ``INSV2V_PALLAS_NORM`` is on).
+
+SDXL's second tower (ViT-bigG/14: width 1280, 32 layers, 20 heads) is the
+same module with ``final_norm=False`` (the penultimate state as it is,
+sgm's ``FrozenOpenCLIPEmbedder2``) and ``projection_dim``: then every
+block runs, and the call also returns the pooled embedding, ``ln_final``
+of the last block's state at the end token (the first position of the
+largest id) times ``text_projection`` (width, projection_dim).
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ class OpenClipTextConfig:
     mlp_ratio: int = 4
     max_positions: int = 77
     penultimate: bool = True  # run num_layers - 1 blocks (layer='penultimate')
+    final_norm: bool = True  # ln_final on the returned sequence
+    projection_dim: int = 0  # > 0: also return the pooled, projected embedding
 
     @classmethod
     def vit_h_14(cls) -> "OpenClipTextConfig":
@@ -103,15 +112,27 @@ class OpenClipTextEncoder(nn.Module):
         self.positional_embedding = nn.Parameter(torch.randn(cfg.max_positions, cfg.width) * 0.01)
         self.transformer = _Transformer(cfg)
         self.ln_final = LayerNorm(cfg.width)
+        if cfg.projection_dim:
+            self.text_projection = nn.Parameter(
+                torch.randn(cfg.width, cfg.projection_dim) * cfg.width ** -0.5)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor):
+        """The sequence, or (sequence, pooled) with ``projection_dim``."""
+        cfg = self.cfg
         s = input_ids.shape[1]
         x = self.token_embedding(input_ids.long()) + self.positional_embedding[:s]
         mask = torch.full((s, s), float("-inf"), device=x.device).triu(1)[None, None]
-        n_blocks = self.cfg.num_layers - (1 if self.cfg.penultimate else 0)
+        n_blocks = cfg.num_layers - (1 if cfg.penultimate else 0)
         for block in self.transformer.resblocks[:n_blocks]:
             x = block(x, mask)
-        return self.ln_final(x)
+        seq = self.ln_final(x) if cfg.final_norm else x
+        if not cfg.projection_dim:
+            return seq
+        for block in self.transformer.resblocks[n_blocks:]:
+            x = block(x, mask)
+        eot = input_ids.argmax(dim=-1)
+        pooled = self.ln_final(x[torch.arange(x.shape[0], device=x.device), eot])
+        return seq, pooled @ self.text_projection.to(pooled.dtype)
 
 
 _TOWER_KEYS = ("token_embedding.", "positional_embedding", "transformer.resblocks.", "ln_final.")

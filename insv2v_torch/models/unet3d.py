@@ -16,6 +16,18 @@ self-attention through ``dot_attention`` (kernel A at S >= 256); the
 motion modules' attention over frames through ``temporal_attention``
 (kernel C) on the unpacked per-(pixel, head) F x F form.
 
+SDXL-shaped configurations (``configs/insv2v_sdxl.yaml``): heads given per
+level (``attention_head_dim`` as a tuple, diffusers' naming), a
+transformer depth per level (``transformer_layers_per_block``; the mid
+block takes the last level's), linear ``proj_in``/``proj_out``
+(``use_linear_projection``) and the ``text_time`` added embedding
+(``addition_embed_type``): the pooled text embedding and six size ids,
+each id sinusoidal at ``addition_time_embed_dim``, through a linear,
+SiLU and a linear into the time embedding. A call hands them in as
+``added_cond = {"text_embeds": (B, D), "time_ids": (B, 6)}``. A spatial
+transformer of more than one block (a stack) runs inside the span
+``unet.stack.l<level>``.
+
 Split skip (``INSV2V_SPLIT_SKIP``, the JAX package's switch and default:
 on for calls of at most ``INSV2V_SPLIT_SKIP_MAX_B`` = 3 videos, such as
 the edit's 3x-CFG call): each up-block ResnetBlock3D consumes its skip
@@ -39,7 +51,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -56,6 +68,7 @@ from insv2v_torch.ops.fused_ff import geglu_ff
 from insv2v_torch.ops.norms import group_norm, group_norm_split_pair, layer_norm
 from insv2v_torch.ops.resize import nearest_upsample_2x
 from insv2v_torch.parallel.dist import frame_group
+from insv2v_torch.utils.tracing import span
 
 __all__ = ["UNetConfig", "UNet3DConditionModel", "uses_split_skip"]
 
@@ -70,7 +83,7 @@ SPLIT_SKIP_MAX_B = int(os.environ.get("INSV2V_SPLIT_SKIP_MAX_B", "3"))
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
-    """configs/instruct_v2v.yaml ``unet.params``."""
+    """configs/instruct_v2v.yaml ``unet.params`` (and configs/insv2v_sdxl.yaml's)."""
 
     in_channels: int = 8
     out_channels: int = 4
@@ -82,8 +95,17 @@ class UNetConfig:
         "UpBlock3D", "CrossAttnUpBlock3D", "CrossAttnUpBlock3D",
         "CrossAttnUpBlock3D")
     layers_per_block: int = 2
-    attention_head_dim: int = 8  # = number of heads (diffusers naming)
+    # number of heads (diffusers naming): one for every level, or one a level
+    attention_head_dim: Union[int, Tuple[int, ...]] = 8
+    # spatial transformer blocks: one for every level, or one a level (the
+    # mid block takes the last level's)
+    transformer_layers_per_block: Union[int, Tuple[int, ...]] = 1
     cross_attention_dim: int = 768
+    use_linear_projection: bool = False  # proj_in/proj_out as Linear, else 1x1 conv
+    # "text_time": the pooled text embedding and the size ids added to temb
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
     norm_num_groups: int = 32
     norm_eps: float = 1e-5
     use_motion_module: bool = True
@@ -105,6 +127,14 @@ class UNetConfig:
     @property
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
+
+    def heads(self, level: int) -> int:
+        h = self.attention_head_dim
+        return h if isinstance(h, int) else h[level]
+
+    def depth(self, level: int) -> int:
+        d = self.transformer_layers_per_block
+        return d if isinstance(d, int) else d[level]
 
     @classmethod
     def tiny(cls, **kw) -> "UNetConfig":
@@ -227,26 +257,49 @@ class BasicTransformerBlock(nn.Module):
         return self.ff.residual(x, self.norm3)
 
 
-class Transformer3DModel(nn.Module):
-    """Per-frame spatial transformer. x (B, F, H, W, C), context (B, L, D)."""
+def _project(proj: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """A transformer's proj_in/proj_out on the channels-last stream."""
+    return proj(x) if isinstance(proj, nn.Linear) else linear_1x1(proj, x)
 
-    def __init__(self, c: int, heads: int, head_dim: int, groups: int, context_dim: int):
+
+class Transformer3DModel(nn.Module):
+    """Per-frame spatial transformer of ``depth`` blocks. x (B, F, H, W, C),
+    context (B, L, D). A stack (depth > 1) runs inside the span
+    ``unet.stack.l<level>``."""
+
+    def __init__(self, c: int, heads: int, head_dim: int, groups: int, context_dim: int,
+                 depth: int = 1, linear: bool = False, level: int = 0):
         super().__init__()
         inner = heads * head_dim
         self.norm = _norm(groups, c, 1e-6)
-        self.proj_in = nn.Conv2d(c, inner, 1)
+        self.proj_in = nn.Linear(c, inner) if linear else nn.Conv2d(c, inner, 1)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(inner, heads, head_dim, context_dim)])
-        self.proj_out = nn.Conv2d(inner, c, 1)
+            [BasicTransformerBlock(inner, heads, head_dim, context_dim) for _ in range(depth)])
+        self.proj_out = nn.Linear(inner, c) if linear else nn.Conv2d(inner, c, 1)
+        self.span_name = f"unet.stack.l{level}" if depth > 1 else None
 
     def forward(self, x, context):
+        if self.span_name is None:
+            return self._forward(x, context)
+        with span(self.span_name):
+            return self._forward(x, context)
+
+    def _forward(self, x, context):
         b, f, h, w, c = x.shape
         xf = self.norm(x.reshape(b * f, h, w, c))  # per-frame statistics
-        seq = linear_1x1(self.proj_in, xf).reshape(b * f, h * w, -1)
+        seq = _project(self.proj_in, xf).reshape(b * f, h * w, -1)
         ctx = context.repeat_interleave(f, dim=0)
-        seq = self.transformer_blocks[0](seq, ctx)
-        out = linear_1x1(self.proj_out, seq)
+        for blk in self.transformer_blocks:
+            seq = blk(seq, ctx)
+        out = _project(self.proj_out, seq)
         return out.reshape(b, f, h, w, c) + x
+
+
+def _transformer(cfg: "UNetConfig", c: int, level: int) -> Transformer3DModel:
+    """The spatial transformer of a block at ``level``, as ``cfg`` shapes it."""
+    heads = cfg.heads(level)
+    return Transformer3DModel(c, heads, c // heads, cfg.norm_num_groups, cfg.cross_attention_dim,
+                              cfg.depth(level), cfg.use_linear_projection, level)
 
 
 def _pe_table(dim: int, max_len: int, device=None) -> torch.Tensor:
@@ -445,17 +498,15 @@ class Upsample3D(nn.Module):
 
 class DownBlock3D(nn.Module):
     def __init__(self, cfg: UNetConfig, cin: int, cout: int, cross: bool,
-                 motion: bool, downsample: bool):
+                 motion: bool, downsample: bool, level: int = 0):
         super().__init__()
         n = cfg.layers_per_block
         temb = cfg.time_embed_dim
         self.resnets = nn.ModuleList([
             ResnetBlock3D(cin if i == 0 else cout, cout, temb, cfg.norm_num_groups,
                           cfg.norm_eps) for i in range(n)])
-        heads = cfg.attention_head_dim
-        self.attentions = nn.ModuleList([
-            Transformer3DModel(cout, heads, cout // heads, cfg.norm_num_groups,
-                               cfg.cross_attention_dim) for _ in range(n)]) if cross else None
+        self.attentions = nn.ModuleList(
+            [_transformer(cfg, cout, level) for _ in range(n)]) if cross else None
         self.motion_modules = nn.ModuleList(
             [MotionModule(cout, cfg) for _ in range(n)]) if motion else None
         self.downsamplers = nn.ModuleList([Downsample3D(cout)]) if downsample else None
@@ -480,13 +531,10 @@ class MidBlock3D(nn.Module):
         super().__init__()
         ch = cfg.block_out_channels[-1]
         temb = cfg.time_embed_dim
-        heads = cfg.attention_head_dim
         self.resnets = nn.ModuleList([
             ResnetBlock3D(ch, ch, temb, cfg.norm_num_groups, cfg.norm_eps)
             for _ in range(2)])
-        self.attentions = nn.ModuleList([
-            Transformer3DModel(ch, heads, ch // heads, cfg.norm_num_groups,
-                               cfg.cross_attention_dim)])
+        self.attentions = nn.ModuleList([_transformer(cfg, ch, len(cfg.block_out_channels) - 1)])
         self.motion_modules = (nn.ModuleList([MotionModule(ch, cfg)])
                                if cfg.use_motion_module and cfg.motion_module_mid_block
                                else None)
@@ -501,7 +549,7 @@ class MidBlock3D(nn.Module):
 
 class UpBlock3D(nn.Module):
     def __init__(self, cfg: UNetConfig, prev: int, cout: int, skip_in: int,
-                 cross: bool, motion: bool, upsample: bool):
+                 cross: bool, motion: bool, upsample: bool, level: int = 0):
         super().__init__()
         n = cfg.layers_per_block + 1
         temb = cfg.time_embed_dim
@@ -509,10 +557,8 @@ class UpBlock3D(nn.Module):
             ResnetBlock3D((prev if i == 0 else cout) + (skip_in if i == n - 1 else cout),
                           cout, temb, cfg.norm_num_groups, cfg.norm_eps)
             for i in range(n)])
-        heads = cfg.attention_head_dim
-        self.attentions = nn.ModuleList([
-            Transformer3DModel(cout, heads, cout // heads, cfg.norm_num_groups,
-                               cfg.cross_attention_dim) for _ in range(n)]) if cross else None
+        self.attentions = nn.ModuleList(
+            [_transformer(cfg, cout, level) for _ in range(n)]) if cross else None
         self.motion_modules = nn.ModuleList(
             [MotionModule(cout, cfg) for _ in range(n)]) if motion else None
         self.upsamplers = nn.ModuleList([Upsample3D(cout)]) if upsample else None
@@ -534,7 +580,8 @@ class UNet3DConditionModel(nn.Module):
     """sample (B, F, H, W, C_in), timesteps (B,) or scalar, context
     (B, L, D_text), window start index -> eps (B, F, H, W, C_out), in the
     parameters' dtype. A call's ``split_skip`` overrides
-    ``cfg.split_skip``."""
+    ``cfg.split_skip``; ``added_cond`` carries the ``text_time`` inputs
+    where the configuration has them."""
 
     def __init__(self, cfg: UNetConfig = UNetConfig()):
         super().__init__()
@@ -542,13 +589,18 @@ class UNet3DConditionModel(nn.Module):
         ch = cfg.block_out_channels
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(ch[0], cfg.time_embed_dim)
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim,
+                                                   cfg.time_embed_dim)
+        elif cfg.addition_embed_type is not None:
+            raise ValueError(f"addition_embed_type {cfg.addition_embed_type!r} unknown")
         motion = lambda res: cfg.use_motion_module and res in cfg.motion_module_resolutions
         self.down_blocks = nn.ModuleList()
         cin = ch[0]
         for i, kind in enumerate(cfg.down_block_types):
             self.down_blocks.append(DownBlock3D(
                 cfg, cin, ch[i], kind == "CrossAttnDownBlock3D", motion(2 ** i),
-                downsample=i < len(ch) - 1))
+                downsample=i < len(ch) - 1, level=i))
             cin = ch[i]
         self.mid_block = MidBlock3D(cfg)
         rev = list(reversed(ch))
@@ -558,7 +610,7 @@ class UNet3DConditionModel(nn.Module):
             self.up_blocks.append(UpBlock3D(
                 cfg, prev, rev[i], rev[min(i + 1, len(ch) - 1)],
                 kind == "CrossAttnUpBlock3D", motion(2 ** (len(ch) - 1 - i)),
-                upsample=i < len(ch) - 1))
+                upsample=i < len(ch) - 1, level=len(ch) - 1 - i))
             prev = rev[i]
         self.conv_norm_out = _norm(cfg.norm_num_groups, ch[0], cfg.norm_eps)
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
@@ -571,8 +623,18 @@ class UNet3DConditionModel(nn.Module):
             return checkpoint(blk, *args, use_reentrant=False)
         return blk(*args)
 
+    def text_time_embedding(self, added_cond: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """(B, D + 6 * addition_time_embed_dim): the pooled text embedding,
+        then each size id's sinusoidal embedding (diffusers' ``text_time``)."""
+        ids = added_cond["time_ids"]
+        t = timestep_embedding(ids.flatten(), self.cfg.addition_time_embed_dim,
+                               self.cfg.flip_sin_to_cos, self.cfg.freq_shift)
+        pooled = added_cond["text_embeds"]
+        return torch.cat([pooled.float(), t.reshape(ids.shape[0], -1)], dim=-1)
+
     def forward(self, sample, timesteps, encoder_hidden_states, video_start_index: int = 0,
-                split_skip: Optional[bool] = None):
+                split_skip: Optional[bool] = None,
+                added_cond: Optional[Mapping[str, torch.Tensor]] = None):
         cfg = self.cfg
         dt = self.conv_in.weight.dtype
         if not torch.is_tensor(timesteps) or timesteps.ndim == 0:
@@ -580,6 +642,11 @@ class UNet3DConditionModel(nn.Module):
         t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                    cfg.flip_sin_to_cos, cfg.freq_shift).to(dt)
         temb = self.time_embedding(t_emb)
+        if cfg.addition_embed_type is not None:
+            if added_cond is None:
+                raise ValueError("this UNet's configuration takes added_cond "
+                                 "(text_embeds and time_ids)")
+            temb = temb + self.add_embedding(self.text_time_embedding(added_cond).to(dt))
         context = encoder_hidden_states.to(dt)
         x = conv2d_frames(self.conv_in, sample.to(dt))
         skips = [x]
