@@ -16,6 +16,21 @@ new frames of each follow-up window, and ``"step"`` for sampler steps
 with non-zero variance (DDPM; never DDIM at eta 0). The default draws
 from a ``torch.Generator`` seeded with ``seed``; a test hands in the
 exact draws of a JAX run instead.
+
+The UNet's 3-way call of each step (``_unet``) is replayed from a CUDA
+graph (``diffusion/graphed_unet.py``): on a CUDA device the first call
+with a key (the shapes, the window start, the parameters, the train/eval
+flags, the kernel switches) captures the forward, and every call with
+that key launches the graph where the host dispatched the forward op by
+op. The graphs belong to the UNet module, so editors over the same UNet
+share them. The call runs eagerly, as the model's own, wherever a replay
+would skip Python that has to run: on the CPU, with gradient recording
+on, inside ``frame_parallel`` (the motion modules' all-to-alls), where a
+module of the UNet carries a forward hook or pre-hook (or a global one
+exists), and where a submodule opens its own span (the stacks of more
+than one block). A replayed call returns the graph's static output, which
+the next call overwrites: ``dual_cfg_eps`` consumes it at once, and a
+caller that wraps ``_unet`` clones what it keeps.
 """
 
 from __future__ import annotations
@@ -26,6 +41,7 @@ import numpy as np
 import torch
 
 from insv2v_torch._device import resolve_device
+from insv2v_torch.diffusion.graphed_unet import unet_call
 from insv2v_torch.diffusion.samplers import sample_video_window, split_windows
 from insv2v_torch.diffusion.schedules import DiffusionSchedule, make_sampler_tables
 from insv2v_torch.models.vae import SD_SCALE_FACTOR
@@ -118,8 +134,11 @@ class VideoEditor:
         return flows, masks
 
     def _unet(self, sample, t, ctx, video_start_index, added_cond=None):
-        return self.unet(sample, t, ctx, video_start_index=video_start_index,
-                         added_cond=added_cond)
+        """The UNet's call, replayed from a CUDA graph where it can be (the
+        module docstring). A replayed call returns the graph's static
+        output, which the next call overwrites: consume it before the next
+        call, or clone what you keep."""
+        return unet_call(self.unet, sample, t, ctx, video_start_index, added_cond)
 
     def _added_cond(self, pooled_uncond, pooled_cond, height: int, width: int):
         """The ``text_time`` inputs of the uncond and the cond branch: the
