@@ -17,18 +17,15 @@ with non-zero variance (DDPM; never DDIM at eta 0). The default draws
 from a ``torch.Generator`` seeded with ``seed``; a test hands in the
 exact draws of a JAX run instead.
 
-The UNet's 3-way call of each step (``_unet``) is replayed from a CUDA
-graph (``diffusion/graphed_unet.py``): on a CUDA device the first call
-with a key (the shapes, the window start, the parameters, the train/eval
-flags, the kernel switches) captures the forward, and every call with
-that key launches the graph where the host dispatched the forward op by
-op. The graphs belong to the UNet module, so editors over the same UNet
-share them. The call runs eagerly, as the model's own, wherever a replay
-would skip Python that has to run: on the CPU, with gradient recording
-on, inside ``frame_parallel`` (the motion modules' all-to-alls), where a
-module of the UNet carries a forward hook or pre-hook (or a global one
-exists), and where a submodule opens its own span (the stacks of more
-than one block). A replayed call returns the graph's static output, which
+The UNet's 3-way call of each step (``_unet``) is replayed from CUDA
+graphs (``models/graphed_call.py``, forward mode): on a CUDA device the
+first call with a key (the shapes, the window start, the ``added_cond``
+names, the parameters, the kernel switches) captures the forward, and
+every call with that key launches the graph. The graphs belong to the
+UNet module, so editors over the same UNet share them. Where a replay
+would skip Python that has to run (on the CPU, with gradient recording
+on, inside ``frame_parallel``, under a module hook, where a stack opens
+its own span) the call is the model's own. A replayed call returns the graph's static output, which
 the next call overwrites: ``dual_cfg_eps`` consumes it at once, and a
 caller that wraps ``_unet`` clones what it keeps.
 """
@@ -41,9 +38,9 @@ import numpy as np
 import torch
 
 from insv2v_torch._device import resolve_device
-from insv2v_torch.diffusion.graphed_unet import unet_call
 from insv2v_torch.diffusion.samplers import sample_video_window, split_windows
 from insv2v_torch.diffusion.schedules import DiffusionSchedule, make_sampler_tables
+from insv2v_torch.models.graphed_call import graphed_call
 from insv2v_torch.models.vae import SD_SCALE_FACTOR
 from insv2v_torch.ops.resize import warp_image
 from insv2v_torch.utils.flow import get_flow_estimator, window_flows
@@ -138,7 +135,14 @@ class VideoEditor:
         module docstring). A replayed call returns the graph's static
         output, which the next call overwrites: consume it before the next
         call, or clone what you keep."""
-        return unet_call(self.unet, sample, t, ctx, video_start_index, added_cond)
+        names = None if added_cond is None else tuple(sorted(added_cond))
+
+        def call(sample, t, ctx, *added):
+            return self.unet(sample, t, ctx, video_start_index=video_start_index,
+                             added_cond=None if names is None else dict(zip(names, added)))
+
+        return graphed_call(self.unet, call, sample, t, ctx, *(added_cond[k] for k in names or ()),
+                            span_prefix="sampler", static=(names, video_start_index))
 
     def _added_cond(self, pooled_uncond, pooled_cond, height: int, width: int):
         """The ``text_time`` inputs of the uncond and the cond branch: the

@@ -40,27 +40,23 @@ five draws of a microbatch (the two posterior normals ``enc_cond`` and
 ``torch.Generator`` or are handed in through ``draws``, so a test can
 replay a JAX run's draws.
 
-CUDA graphs (``training/cuda_graphs.py``). On a CUDA device the UNet's
-training call and its backward to the motion parameters, remat's reruns
-and ``KernelGrad``'s twin recomputes inside it, are replayed from CUDA
-graphs captured at the first microbatch of each shape (span
-``train.graph_capture``; each forward replay is a ``train.graph_replay``):
-the host launches two graphs a microbatch where it dispatched the forward
-and the backward op by op. What stays eager, and why: the encodes, the
-draws, ``add_noise`` and the cond drop (they draw from the generator, and
-no RNG runs inside a capture), the loss, the per-leaf accumulation, the
-all-reduce, the optimizer and ``push_params`` (its in-place copy is what
-the next replay reads). The kernel wrappers' ``.launches`` count a
-replay's launches as the eager call's; the capturing microbatch adds those
-of the capture's warm-up (one eager forward and backward), so its counts
-and seconds hold the warm-up too. A graph is keyed by what the call can
-observe (shapes, dtypes, autocast, the parameters' storage, the modules'
-train/eval flags, ``unet.cfg``, the kernels' dispatch switches): a change
-of any captures anew. The prediction and the gradients are the graphs'
-static buffers, overwritten by the next replay: a microbatch's backward
-runs, and its gradients are added into the accumulators, before the next
-microbatch's forward, as ``accumulate_grads`` does. On the CPU the call is
-the model's own, as it always was.
+CUDA graphs (``models/graphed_call.py``, backward mode). On a CUDA
+device the UNet's training call and its backward to the motion
+parameters, remat's reruns and ``KernelGrad``'s twin recomputes inside
+it, are replayed from CUDA graphs captured at the first microbatch of
+each key (span ``train.graph_capture``; each forward replay is a
+``train.graph_replay``): the host launches two graphs a microbatch where
+it dispatched the forward and the backward op by op. What stays eager,
+and why: the encodes, the draws, ``add_noise`` and the cond drop (they
+draw from the generator, and no RNG runs inside a capture), the loss, the
+per-leaf accumulation, the all-reduce, the optimizer and ``push_params``
+(its in-place copy is what the next replay reads). The capturing
+microbatch's launch counts and seconds hold the capture's warm-up (one
+eager forward and backward). The prediction and the gradients are the
+graphs' static buffers: a microbatch's backward runs, and its gradients
+are added into the accumulators, before the next microbatch's forward, as
+``accumulate_grads`` does. On the CPU, and where a module hook or a
+stack's own span needs the model's Python, the call is the model's own.
 """
 
 from __future__ import annotations
@@ -74,9 +70,9 @@ import torch
 from torch.distributed.optim import ZeroRedundancyOptimizer
 
 from insv2v_torch.diffusion.schedules import DiffusionSchedule, add_noise
+from insv2v_torch.models.graphed_call import graphed_call
 from insv2v_torch.models.vae import SD_SCALE_FACTOR
 from insv2v_torch.parallel.dist import Group
-from insv2v_torch.training.cuda_graphs import GraphedCall
 from insv2v_torch.training.quantized_adam import Adam8bit
 from insv2v_torch.utils.tracing import span
 
@@ -165,7 +161,9 @@ class Trainer:
             beta_start=cfg.beta_start, beta_end=cfg.beta_end)
         self.device = next(unet.parameters()).device
         # the training call, replayed from CUDA graphs on a CUDA device
-        self.unet_call = GraphedCall(functools.partial(unet, split_skip=False), unet)
+        self.unet_call = functools.partial(graphed_call, unet,
+                                           functools.partial(unet, split_skip=False),
+                                           span_prefix="train", backward=True)
 
     # --- state --------------------------------------------------------------
 

@@ -1,7 +1,7 @@
-"""The editor's CUDA-graph replay (``diffusion/graphed_unet.py``) against
-its eager call on the card (marker ``gpu``; they skip on a machine without
-one). This file imports torch and the port only, so it also runs where
-JAX is not installed:
+"""The editor's CUDA-graph replay (``models/graphed_call.py``, forward
+mode) against its eager call on the card (marker ``gpu``; they skip on a
+machine without one). This file imports torch and the port only, so it
+also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_gpu_graphed_unet.py -m gpu --noconftest
 
@@ -18,9 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from insv2v_torch.diffusion.graphed_unet import graphs_of, unet_call
 from insv2v_torch.diffusion.pipeline import VideoEditor
 from insv2v_torch.models.clip_text import ClipTextConfig, ClipTextEncoder
+from insv2v_torch.models.graphed_call import graphs_of
 from insv2v_torch.models.unet3d import UNet3DConditionModel, UNetConfig
 from insv2v_torch.models.vae import AutoencoderKL, VaeConfig
 from insv2v_torch.text.tokenizer import HashTokenizer
@@ -110,7 +110,7 @@ def test_graphed_edit_equals_the_eager_edit(cuda):
     assert _counts() == (0, 0, 150)
     got = editor(_frames(), "make it snowy", **EDIT_KW)
     assert _counts() == (3, 150, 300)
-    assert len(graphs_of(editor.unet).replays) == 3
+    assert len(graphs_of(editor.unet).captured) == 3
     np.testing.assert_array_equal(got, want)
 
 
@@ -118,7 +118,8 @@ def test_a_new_window_start_captures_anew(cuda):
     """The PE tables are sliced by the window start on the host: the same
     shapes at another start are another graph, and its output is the
     eager call's at that start."""
-    unet = _editor(cuda, 2).unet
+    editor = _editor(cuda, 2)
+    unet = editor.unet
     g = torch.Generator(device=cuda).manual_seed(1)
     sample = torch.randn((3, 16, 16, 16, 8), generator=g, device=cuda)
     t = torch.full((3,), 501, dtype=torch.int64, device=cuda)
@@ -126,7 +127,7 @@ def test_a_new_window_start_captures_anew(cuda):
     with torch.no_grad():
         outs = {}
         for start in (0, 0, 12):
-            outs[start] = unet_call(unet, sample, t, ctx, start).clone()
+            outs[start] = editor._unet(sample, t, ctx, start).clone()
         assert _counts()[:2] == (2, 3)
         for start, out in outs.items():
             want = unet(sample, t, ctx, video_start_index=start)
@@ -137,7 +138,8 @@ def test_a_new_window_start_captures_anew(cuda):
 def test_replayed_calls_count_the_eager_launches(cuda):
     """A replayed call advances the kernel wrappers' counters as the eager
     call does, and its output is the eager call's."""
-    unet = _unet().to(cuda, torch.bfloat16).eval()
+    editor = _editor(cuda, 2)
+    unet = editor.unet
     g = torch.Generator(device=cuda).manual_seed(2)
     sample = torch.randn((3, 16, 32, 32, 8), generator=g, device=cuda)
     t = torch.full((3,), 301, dtype=torch.int64, device=cuda)
@@ -148,9 +150,9 @@ def test_replayed_calls_count_the_eager_launches(cuda):
         want = unet(sample, t, ctx, video_start_index=4)
         eager = {k: v - before[k] for k, v in counters().items()}
         assert eager["flash_attention"] and eager["fused_geglu_ff"] and eager["temporal_attention"]
-        unet_call(unet, sample, t, ctx, 4)  # captures: warm-up and replay
+        editor._unet(sample, t, ctx, 4)  # captures: warm-up and replay
         before = counters()
-        got = unet_call(unet, sample, t, ctx, 4)
+        got = editor._unet(sample, t, ctx, 4)
         assert {k: v - before[k] for k, v in counters().items()} == eager
     torch.cuda.synchronize()
     assert torch.equal(got, want)

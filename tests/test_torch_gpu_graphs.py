@@ -1,4 +1,5 @@
-"""The trainer's CUDA-graph replay against its eager call on the card
+"""The trainer's CUDA-graph replay (``models/graphed_call.py``, backward
+mode) against its eager call on the card
 (marker ``gpu``; they skip on a machine without one). This file imports
 torch and the port only, so it also runs where JAX is not installed:
 
@@ -20,6 +21,7 @@ import torch
 
 from insv2v_torch.data.native_loader import PrefetchLoader
 from insv2v_torch.models.clip_text import ClipTextConfig, ClipTextEncoder
+from insv2v_torch.models.graphed_call import graphs_of
 from insv2v_torch.models.unet3d import UNet3DConditionModel, UNetConfig
 from insv2v_torch.models.vae import AutoencoderKL, VaeConfig
 from insv2v_torch.ops import attention
@@ -150,7 +152,7 @@ def both(models):
     graphed = _run(trainer, batch)
     graphed["captures"] = tracing.count("train.graph_capture")
     graphed["replays"] = tracing.count("train.graph_replay")
-    (captured,) = trainer.unet_call.captured.values()
+    (captured,) = graphs_of(trainer.unet).captured.values()
     graphed["replay_launches"] = {k: v + captured.bwd_launches[k]
                                   for k, v in captured.fwd_launches.items()}
     eager = _run(_trainer(models, eager=True), batch)
@@ -224,7 +226,7 @@ def test_new_shape_captures_anew(models):
             assert tracing.count("train.graph_capture") == 2
     assert tracing.count("train.graph_capture") == 2
     assert tracing.count("train.graph_replay") == 3 * ACCUM
-    assert len(graphed.unet_call.captured) == 2
+    assert len(graphs_of(graphed.unet).captured) == 2
     for a, b in losses:
         assert abs(a - b) <= 1e-6 * abs(b)
 
