@@ -16,7 +16,7 @@ frame- and batch-sharded windows) and times the native batch loader.
     python3 chip_smoke.py --only env,build,split,demo,t5
     python3 chip_smoke.py --only env,build,parity,ckpt
 
-Phases: env, build, parity (kernels A, A', B, C, D against their twins,
+Phases: env, build, parity (kernels A, A', B, C, D, E against their twins,
 with times, bounds and the one-call PyTorch yardstick), unet (GPU bf16 vs
 CPU float32 on a small latent), ckpt (the UNet written as a Lightning
 checkpoint with pickled hyper-parameters and loaded through the edit
@@ -122,12 +122,32 @@ TEMPORAL_SHAPES = [(3, 1536, 16, 8, 40), (3, 384, 16, 8, 80), (3, 96, 16, 8, 160
 # kernel D: (rows, C) of the UNet's LayerNorms at 48 frames of 32x48 and
 # of CLIP's (48 prompts of 77 tokens)
 LN_SHAPES = [(73728, 320), (18432, 640), (4608, 1280), (48 * 77, 768)]
+# kernel E: (N, M, channels of each part, SiLU) of the GroupNorms it takes
+# on each path (32 groups). The edit's UNet call: ResnetBlock3D across
+# frames (N = 3, M = 16 frames of 32x48 latents at level 0), the
+# transformer and motion norms per frame (N = 48), the split-skip pairs;
+# SDXL's level 0 and 1 920-channel pair at 96x96 latents. The VAE, a 4-D
+# call per frame: the edit's encode (chunks of 16 frames at 256x384,
+# levels 0-2 and the mid block) and decode (chunks of 8), the training
+# encodes at 256x256, datagen's decode at 256x256, SDXL's decode at
+# 768x768. Datagen's UNetSD (4 samples of 16 frames of 32x32): across
+# frames, per frame, its widest concat. LOVEU's level 0 (48x48 latents).
+GN_SHAPES = [(3, 24576, (320,), True), (3, 6144, (640,), True), (3, 1536, (1280,), True),
+             (3, 384, (1280,), True), (48, 1536, (320,), False), (48, 384, (640,), False),
+             (3, 24576, (640, 320), True), (3, 1536, (1280, 640), True),
+             (3, 147456, (320,), True), (48, 9216, (320,), False), (3, 36864, (1280, 640), True),
+             (16, 98304, (128,), True), (16, 24576, (256,), True), (16, 6144, (512,), True),
+             (16, 1536, (512,), True), (8, 98304, (128,), True), (8, 24576, (256,), True),
+             (8, 1536, (512,), True), (16, 65536, (128,), True), (16, 16384, (256,), True),
+             (16, 1024, (512,), True), (8, 65536, (128,), True), (8, 589824, (128,), True),
+             (4, 16384, (320,), True), (64, 1024, (320,), True), (4, 1024, (1280,), True),
+             (64, 16, (2560,), True), (3, 36864, (320,), True), (48, 2304, (320,), False)]
 EDIT_FRAMES, EDIT_HEIGHT, EDIT_WIDTH = 32, 256, 384  # bench.py's workload
 # training: micro-batch 1 of 16 frames at 256x256, accumulation 2
 TRAIN_FRAMES, TRAIN_SIZE, TRAIN_ACCUM = 16, 256, 2
 TOL = {  # max |kernel - f32 twin|, bf16-level: 8 mantissa bits of O(1) outputs
     "flash_attention": 2e-2, "flash_attention_headfold": 2e-2, "fused_geglu_ff": 6e-2,
-    "temporal_attention": 2e-2, "fused_layer_norm": 2e-2}
+    "temporal_attention": 2e-2, "fused_layer_norm": 2e-2, "fused_group_norm": 2e-2}
 # relative L2 of one edit UNet call through a UNet loaded from a Lightning
 # checkpoint against the UNet it was written from: the same bf16 weights
 # and kernels, so any reading above it is a weight the load missed
@@ -299,7 +319,9 @@ def phase_parity(gen):
                                             temporal_attention, temporal_attention_reference,
                                             temporal_grid)
     from insv2v_torch.ops.fused_ff import ff_grid, fused_geglu_ff, geglu_ff_reference
-    from insv2v_torch.ops.fused_norm import (fused_layer_norm, fused_layer_norm_reference,
+    from insv2v_torch.ops.fused_norm import (fused_group_norm, fused_group_norm_reference,
+                                             fused_layer_norm, fused_layer_norm_reference,
+                                             group_norm_grid, group_norm_plan, group_norm_rpar,
                                              layer_norm_grid)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -409,6 +431,36 @@ def phase_parity(gen):
         _log_grid("fused_layer_norm", (n, c), layer_norm_grid(n, c))
     entries.append(_entry("fused_layer_norm", "insv2v_torch/csrc/layer_norm.cu",
                           "insv2v_tpu/ops/fused_norm.py:22", rows))
+
+    rows = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, m, widths, silu in GN_SHAPES:
+        c = sum(widths)
+        parts = tuple((rnd(n, m, w).float() * 2 + 0.5).to(torch.bfloat16) for w in widths)
+        # the models' bf16 affine, as the GroupNorm modules hand it over
+        gw, gb = (1.0 + 0.1 * rnd(c).float()).bfloat16(), (0.1 * rnd(c).float()).bfloat16()
+        out = fused_group_norm(parts, gw, gb, 32, 1e-5, silu)
+        ref = fused_group_norm_reference(tuple(p.float() for p in parts), gw, gb, 32, 1e-5, silu)
+        err = max((o.float() - r).abs().max().item() for o, r in zip(out, ref))
+        # the library's best case: F.group_norm on channels-first rows, then F.silu
+        cf = torch.cat(parts, -1).transpose(1, 2).contiguous()
+        lib = lambda: F.silu(F.group_norm(cf, 32, gw, gb, 1e-5)) if silu else \
+            F.group_norm(cf, 32, gw, gb, 1e-5)
+        bms, by = bound(10.0 * n * m * c, 2.0 * 2 * n * m * c)
+        shape = (n, m, "+".join(map(str, widths)), "silu" if silu else "-")
+        rows.append(_report("fused_group_norm", shape, err,
+                            lambda: fused_group_norm(parts, gw, gb, 32, 1e-5, silu),
+                            lambda: fused_group_norm_reference(parts, gw, gb, 32, 1e-5, silu),
+                            lib, 20, bms, by))
+        grid = group_norm_grid(c, group_norm_rpar(c))
+        slots = sms * min(grid["resident_stats"], grid["resident_apply"])
+        rpar, rows_a_block, chunks = group_norm_plan(n, m, c, slots)
+        rows[-1]["grid"] = dict(grid, blocks=n * chunks, rows=rows_a_block)
+        log(f"grid fused_group_norm {shape}: {n * chunks} blocks of {grid['threads']} threads "
+            f"over {rows_a_block} rows, resident an SM {grid['resident_stats']} (stats) / "
+            f"{grid['resident_apply']} (apply), "
+            f"{n * chunks / (grid['resident_apply'] * sms):.2f} waves on {sms} SMs")
+    entries.append(_entry("fused_group_norm", "insv2v_torch/csrc/group_norm.cu", None, rows))
     torch.backends.cudnn.allow_tf32 = True
     return entries
 
@@ -1069,10 +1121,10 @@ def _kernel_fns():
     from insv2v_torch.ops.attention import (flash_attention, flash_attention_headfold,
                                             temporal_attention)
     from insv2v_torch.ops.fused_ff import fused_geglu_ff
-    from insv2v_torch.ops.fused_norm import fused_layer_norm
+    from insv2v_torch.ops.fused_norm import fused_group_norm, fused_layer_norm
 
     fns = (flash_attention, flash_attention_headfold, fused_geglu_ff, temporal_attention,
-           fused_layer_norm)
+           fused_layer_norm, fused_group_norm)
     return {f.__name__: f for f in fns}
 
 
@@ -2291,10 +2343,11 @@ def main():
     ranked = [p for p in ("dp", "sp") if p in phases]
     if ranked:  # spawned ranks build their own models
         paths.update(phase_ranks(args, ranked, smi))
-    # each kernel's launches on the path it belongs to: A, B, C the edit's
-    # (their first slice), A' training's, D the variant edit window's
+    # each kernel's launches on the path it belongs to: A, B, C, E the
+    # edit's (their first slice), A' training's, D the variant edit window's
     home = {"flash_attention": "edit", "fused_geglu_ff": "edit", "temporal_attention": "edit",
-            "flash_attention_headfold": "train", "fused_layer_norm": "variants"}
+            "flash_attention_headfold": "train", "fused_layer_norm": "variants",
+            "fused_group_norm": "edit"}
     for e in entries:
         e["launches_by_path"] = {p: c[e["name"]] for p, c in paths.items()}
         e["launches"] = e["launches_by_path"].get(home[e["name"]])

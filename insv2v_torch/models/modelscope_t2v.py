@@ -228,7 +228,7 @@ class TemporalConvBlock(nn.Module):
     def forward(self, x):
         h = x
         for seq in (self.conv1, self.conv2, self.conv3, self.conv4):
-            h = _tconv(seq[-1], F.silu(seq[0](h)))
+            h = _tconv(seq[-1], seq[0](h, silu=True))
         return x + h
 
 
@@ -249,9 +249,9 @@ class MsResBlock(nn.Module):
 
     def forward(self, x, temb):
         per_frame = (2, 3)
-        h = conv2d_frames(self.in_layers[2], F.silu(self.in_layers[0](x, per_frame)))
+        h = conv2d_frames(self.in_layers[2], self.in_layers[0](x, per_frame, silu=True))
         h = h + self.emb_layers[1](F.silu(temb))[:, None, None, None, :]
-        h = conv2d_frames(self.out_layers[3], F.silu(self.out_layers[0](h, per_frame)))
+        h = conv2d_frames(self.out_layers[3], self.out_layers[0](h, per_frame, silu=True))
         if self.skip_connection is not None:
             x = conv2d_frames(self.skip_connection, x)
         return self.temopral_conv(x + h)
@@ -368,5 +368,5 @@ class UNetSD(nn.Module):
         h = self._run(self.middle_block, h, temb, context, sa_share)
         for block in self.output_blocks:
             h = self._run(block, torch.cat([h, skips.pop()], dim=-1), temb, context, sa_share)
-        h = F.silu(self.out[0](h, (2, 3)))
+        h = self.out[0](h, (2, 3), silu=True)
         return conv2d_frames(self.out[2], h)

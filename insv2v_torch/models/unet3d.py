@@ -148,14 +148,14 @@ class UNetConfig:
 
 class GroupNorm(nn.GroupNorm):
     """nn.GroupNorm's parameters, applied channels-last through
-    ``ops.norms.group_norm``; ``reduce_axes`` as there. On the 5D video
-    stream its statistics pool across frames, so under a frame group they
-    come from every rank's frames."""
+    ``ops.norms.group_norm``; ``reduce_axes`` and ``silu`` as there. On the
+    5D video stream its statistics pool across frames, so under a frame
+    group they come from every rank's frames."""
 
-    def forward(self, x, reduce_axes=None):
+    def forward(self, x, reduce_axes=None, silu: bool = False):
         group = frame_group() if x.ndim == 5 and reduce_axes is None else None
         return group_norm(x, self.weight, self.bias, self.num_groups, self.eps,
-                          reduce_axes=reduce_axes, group=group)
+                          reduce_axes=reduce_axes, group=group, silu=silu)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -453,9 +453,9 @@ class ResnetBlock3D(nn.Module):
             return self._split_forward(x, temb, skip)
         if skip is not None:
             x = torch.cat([x, skip], dim=-1)
-        h = conv2d_frames(self.conv1, F.silu(self.norm1(x)))
+        h = conv2d_frames(self.conv1, self.norm1(x, silu=True))
         h = h + self.time_emb_proj(F.silu(temb))[:, None, None, None, :]
-        h = conv2d_frames(self.conv2, F.silu(self.norm2(h)))
+        h = conv2d_frames(self.conv2, self.norm2(h, silu=True))
         if self.conv_shortcut is not None:
             x = linear_1x1(self.conv_shortcut, x)
         return x + h
@@ -468,12 +468,12 @@ class ResnetBlock3D(nn.Module):
         assert self.conv_shortcut is not None, "the split path expects a channel change"
         norm1 = self.norm1
         xn, sn = group_norm_split_pair(x, skip, norm1.weight, norm1.bias, norm1.num_groups,
-                                       norm1.eps, group=frame_group())
+                                       norm1.eps, group=frame_group(), silu=True)
         wx, ws = _kernel_parts(self.conv1.weight, c1)
-        h = (conv2d_frames(self.conv1, F.silu(xn), wx, self.conv1.bias)
-             + conv2d_frames(self.conv1, F.silu(sn), ws))
+        h = (conv2d_frames(self.conv1, xn, wx, self.conv1.bias)
+             + conv2d_frames(self.conv1, sn, ws))
         h = h + self.time_emb_proj(F.silu(temb))[:, None, None, None, :]
-        h = conv2d_frames(self.conv2, F.silu(self.norm2(h)))
+        h = conv2d_frames(self.conv2, self.norm2(h, silu=True))
         w1 = self.conv_shortcut.weight.reshape(self.conv_shortcut.weight.shape[:2])
         return F.linear(x, w1[:, :c1], self.conv_shortcut.bias) + F.linear(skip, w1[:, c1:]) + h
 
@@ -660,5 +660,5 @@ class UNet3DConditionModel(nn.Module):
             block_skips = skips[-n_res:]
             del skips[-n_res:]
             x = self._block(blk, x, block_skips, temb, context, video_start_index, split)
-        x = F.silu(self.conv_norm_out(x))
+        x = self.conv_norm_out(x, silu=True)
         return conv2d_frames(self.conv_out, x)

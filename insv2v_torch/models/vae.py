@@ -57,8 +57,8 @@ class ResnetBlock(nn.Module):
         self.nin_shortcut = nn.Conv2d(cin, cout, 1) if cin != cout else None
 
     def forward(self, x):
-        h = conv2d_frames(self.conv1, F.silu(self.norm1(x)))
-        h = conv2d_frames(self.conv2, F.silu(self.norm2(h)))
+        h = conv2d_frames(self.conv1, self.norm1(x, silu=True))
+        h = conv2d_frames(self.conv2, self.norm2(h, silu=True))
         if self.nin_shortcut is not None:
             x = linear_1x1(self.nin_shortcut, x)
         return x + h
@@ -138,7 +138,7 @@ class Encoder(nn.Module):
             if hasattr(lvl, "downsample"):
                 h = lvl.downsample(h)
         h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
-        return conv2d_frames(self.conv_out, F.silu(self.norm_out(h)))
+        return conv2d_frames(self.conv_out, self.norm_out(h, silu=True))
 
 
 class Decoder(nn.Module):
@@ -172,7 +172,7 @@ class Decoder(nn.Module):
                 h = blk(h)
             if i != 0:
                 h = self.up[i].upsample(h)
-        return conv2d_frames(self.conv_out, F.silu(self.norm_out(h)))
+        return conv2d_frames(self.conv_out, self.norm_out(h, silu=True))
 
 
 class DiagonalGaussian:

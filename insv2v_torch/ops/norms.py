@@ -15,6 +15,16 @@ statistics over the sharded frame axis come from every rank's moments.
 
 ``group_norm_split_pair`` is the GroupNorm of a channel concat that is
 never built: the up blocks' split-skip path (``models/unet3d.py``).
+
+Both take ``silu``: the SiLU of the normalised output, as the callers'
+``F.silu(norm(x))``. A call goes through kernel E
+(``ops.fused_norm.fused_group_norm``: statistics, affine and SiLU in one
+read and one write) when it can: no frame group, reduce axes that run
+without a gap up to the channel axis, and rows that kernel E takes
+(``fused_norm.group_norm_takes``: bf16 CUDA tensors, no gradient recorded
+for the output). Every other call
+(training's gradients, sharded frames, float32, the CPU) keeps the ATen
+path below and its arithmetic, the SiLU a separate ``F.silu``.
 """
 
 from __future__ import annotations
@@ -26,13 +36,29 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from insv2v_torch.ops.fused_norm import fused_layer_norm
+from insv2v_torch.ops.fused_norm import fused_group_norm, fused_layer_norm, group_norm_takes
 
 __all__ = ["group_norm", "group_norm_split_pair", "layer_norm", "FUSED_LAYER_NORM"]
 
 # layer_norm's default: kernel D when on; the JAX package's switch and
 # default (INSV2V_PALLAS_NORM, off)
 FUSED_LAYER_NORM = os.environ.get("INSV2V_PALLAS_NORM", "0") == "1"
+
+
+def _as_rows(x: torch.Tensor, lead: int):
+    """``x``'s memory as (N, M, C) rows, N the axes before ``lead`` and M
+    the axes from ``lead`` to the channel axis in the order they are laid
+    out (a motion module hands its output on with the frames innermost),
+    and the map that lays such rows out as ``x`` is; None where those axes
+    are not one dense block a sample."""
+    inner = sorted(range(lead, x.ndim - 1), key=lambda a: -x.stride(a))
+    order = list(range(lead)) + inner + [x.ndim - 1]
+    xp = x.permute(order)
+    if not xp.is_contiguous():
+        return None
+    back = [order.index(a) for a in range(x.ndim)]
+    rows = xp.reshape(math.prod(x.shape[:lead]), -1, x.shape[-1])
+    return rows, lambda y: y.reshape(xp.shape).permute(back)
 
 
 def group_norm(
@@ -43,16 +69,30 @@ def group_norm(
     eps: float = 1e-6,
     reduce_axes: Optional[Sequence[int]] = None,
     group=None,
+    silu: bool = False,
 ) -> torch.Tensor:
-    """GroupNorm of ``x`` (..., C). ``reduce_axes`` defaults to every axis
-    except the batch axis 0 and the channel axis. ``group``: a
-    ``parallel.dist.Group`` over whose ranks one of the reduced axes is
-    sharded; the statistics are then every rank's (one all-reduce of the
-    per-group sum, sum of squares and count, in float64)."""
+    """GroupNorm of ``x`` (..., C), then its SiLU with ``silu``.
+    ``reduce_axes`` defaults to every axis except the batch axis 0 and the
+    channel axis. ``group``: a ``parallel.dist.Group`` over whose ranks one
+    of the reduced axes is sharded; the statistics are then every rank's
+    (one all-reduce of the per-group sum, sum of squares and count, in
+    float64)."""
     c = x.shape[-1]
     assert c % num_groups == 0, f"channels {c} not divisible by groups {num_groups}"
     if reduce_axes is None:
         reduce_axes = tuple(range(1, x.ndim - 1))
+    lead = min((a % x.ndim for a in reduce_axes), default=x.ndim - 1)
+    if sorted(a % x.ndim for a in reduce_axes) == list(range(lead, x.ndim - 1)):
+        rows = _as_rows(x, lead)
+        if rows is not None and group is None \
+                and group_norm_takes(rows[:1], scale, bias, num_groups):
+            return rows[1](fused_group_norm(rows[:1], scale, bias, num_groups, eps, silu)[0])
+    y = _group_norm_aten(x, scale, bias, num_groups, eps, reduce_axes, group)
+    return F.silu(y) if silu else y
+
+
+def _group_norm_aten(x, scale, bias, num_groups, eps, reduce_axes, group):
+    c = x.shape[-1]
     xg = x.reshape(x.shape[:-1] + (num_groups, c // num_groups))
     axes = tuple(reduce_axes) + (xg.ndim - 1,)
     if group is None:
@@ -96,9 +136,12 @@ def group_norm_split_pair(
     num_groups: int = 32,
     eps: float = 1e-6,
     group=None,
+    silu: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GroupNorm of the virtual ``concat([x, skip], -1)``, without building
-    the concat: ``(x_n, skip_n)``, each in its own dtype.
+    the concat: ``(x_n, skip_n)``, each in its own dtype, with ``silu``
+    each part's SiLU. Where kernel E takes the call (module docstring) it
+    normalises both parts in one launch; otherwise as follows.
 
     Per-part channel sums and sums of squares over every axis but the batch
     axis 0 and the channel axis (the across-frames statistics of
@@ -116,6 +159,13 @@ def group_norm_split_pair(
     c1, c2 = x.shape[-1], skip.shape[-1]
     ct = c1 + c2
     assert ct % num_groups == 0, f"channels {ct} not divisible by groups {num_groups}"
+    # the statistics pool every row and the affine is per channel, so the
+    # parts' rows need not be laid out alike
+    rx, rs = _as_rows(x, 1), _as_rows(skip, 1)
+    if rx is not None and rs is not None and group is None \
+            and group_norm_takes((rx[0], rs[0]), scale, bias, num_groups):
+        xn, sn = fused_group_norm((rx[0], rs[0]), scale, bias, num_groups, eps, silu)
+        return rx[1](xn), rs[1](sn)
     gs = ct // num_groups
     red = tuple(range(1, x.ndim - 1))
     b = x.shape[0]
@@ -144,7 +194,8 @@ def group_norm_split_pair(
             return torch.addcmul(o, p, a).to(p.dtype)
         return torch.addcmul(o, p, a, out=torch.empty_like(p))
 
-    return apply(x, 0, c1), apply(skip, c1, ct)
+    xn, sn = apply(x, 0, c1), apply(skip, c1, ct)
+    return (F.silu(xn), F.silu(sn)) if silu else (xn, sn)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -30,7 +30,7 @@ events are resolved when the clock closes, after its last mark. A clock
 nested in another on the same thread shares its unit and its events.
 
 ``snapshot()`` is what a reader sees: each name's records, oldest first,
-each name's count of spans, and the launch counters of the five kernel
+each name's count of spans, and the launch counters of the six kernel
 wrappers (their ``.launches``).
 
 No ``record_function`` and no NVTX range: torch's profiler keeps such a
@@ -290,11 +290,12 @@ def unit_ms(name: str, unit) -> float:
 
 
 def kernel_wrappers() -> tuple:
-    """The five kernel wrappers whose ``.launches`` count their launches."""
+    """The six kernel wrappers whose ``.launches`` count their launches."""
     from insv2v_torch.ops import attention, fused_ff, fused_norm
 
     return (attention.flash_attention, attention.flash_attention_headfold,
-            fused_ff.fused_geglu_ff, attention.temporal_attention, fused_norm.fused_layer_norm)
+            fused_ff.fused_geglu_ff, attention.temporal_attention, fused_norm.fused_layer_norm,
+            fused_norm.fused_group_norm)
 
 
 def _launches() -> Dict[str, int]:

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels A, A', B, C and D against their plain PyTorch twins on
+"""The port's CUDA kernels A, A', B, C, D and E against their plain PyTorch twins on
 the card (marker ``gpu``; they skip on a machine without one, where the
 kernels cannot build). This file imports torch and the port only, so it
 also runs where JAX is not installed:
@@ -123,6 +123,137 @@ def test_layer_norm_kernel_matches_twin(cuda, rows, c):
     assert tln.fused_layer_norm.launches == before + 1
     ref = tln.fused_layer_norm_reference(x, scale, bias).float()
     assert (out.float() - ref).abs().max().item() <= 2e-2
+
+
+# kernel E: (N, M, channels of each part, groups, silu): the edit's
+# ResnetBlock3D norms at levels 0-3 (across frames, N = 3, M = 16 * H * W)
+# and its transformer / motion norms (per frame, N = 48), the edit's split
+# pairs (640 + 320, 320 + 320, 1280 + 640, 1280 + 1280), SDXL's level 0
+# (442 368 rows of 320) and its 1 920-channel pair, UNetSD's per-frame
+# (64 = 4 * 16 frames of 32 x 32) and across-frames (TemporalConvBlock)
+# norms, the VAE's 128-, 256- and 512-channel levels (16, 8 or 4 rows a
+# block at once), and ragged tiny ones
+GN_CASES = [(3, 24576, (320,), 32, True), (3, 6144, (640,), 32, True),
+            (3, 1536, (1280,), 32, True), (3, 384, (1280,), 32, True),
+            (48, 1536, (320,), 32, False), (48, 96, (1280,), 32, False),
+            (3, 24576, (640, 320), 32, True), (3, 24576, (320, 320), 32, True),
+            (3, 1536, (1280, 640), 32, True), (3, 384, (1280, 1280), 32, True),
+            (3, 147456, (320,), 32, True), (3, 36864, (1280, 640), 32, True),
+            (64, 1024, (320,), 32, True), (4, 16384, (320,), 32, True),
+            (4, 98304, (128,), 32, True), (16, 24576, (256,), 32, True),
+            (16, 1536, (512,), 32, False), (2, 7, (8,), 4, True), (1, 1, (16, 8), 3, False),
+            (5, 33, (2560, 1536), 32, False)]
+
+
+def _gn_inputs(g, n, m, widths, mean=0.5, spread=2.0):
+    c = sum(widths)
+    parts = tuple((_randn(g, n, m, w).float() * spread + mean).bfloat16() for w in widths)
+    scale, bias = 1.0 + 0.1 * _randn(g, c).float(), 0.1 * _randn(g, c).float()
+    return parts, scale, bias
+
+
+@pytest.mark.parametrize("n,m,widths,groups,silu", GN_CASES)
+def test_group_norm_kernel_matches_twin(cuda, n, m, widths, groups, silu):
+    """Kernel E against its float32 twin on the same bf16 values, one launch
+    a call; with bf16 scale and bias too (the models' own dtype).
+    Tolerance: one bf16 rounding of O(1) outputs (2^-8 relative)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    parts, scale, bias = _gn_inputs(g, n, m, widths)
+    for sc, bi in ((scale, bias), (scale.bfloat16(), bias.bfloat16())):
+        before = tln.fused_group_norm.launches
+        out = tln.fused_group_norm(parts, sc, bi, groups, 1e-5, silu)
+        torch.cuda.synchronize()
+        assert tln.fused_group_norm.launches == before + 1
+        ref = tln.fused_group_norm_reference(tuple(p.float() for p in parts), sc, bi, groups,
+                                             1e-5, silu)
+        for o, r, p in zip(out, ref, parts):
+            assert o.shape == p.shape and o.dtype == torch.bfloat16
+            assert (o.float() - r).abs().max().item() <= 2e-2
+
+
+def test_group_norm_kernel_holds_the_variance_of_a_far_mean(cuda):
+    """Values 100 times their spread, 1.47 M a group (SDXL's level 0): the
+    shifted sums keep the variance, so the output is the twin's."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    parts, scale, bias = _gn_inputs(g, 3, 147456, (320,), mean=100.0, spread=1.0)
+    (out,) = tln.fused_group_norm(parts, scale, bias, 32, 1e-6, False)
+    (ref,) = tln.fused_group_norm_reference((parts[0].float(),), scale, bias, 32, 1e-6, False)
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    assert abs(ref.std().item() - out.float().std().item()) <= 1e-3
+
+
+def test_group_norm_kernel_replays_from_a_cuda_graph_bit_for_bit(cuda):
+    """One capture of kernel E (a split pair with its SiLU), replayed twice:
+    each replay equals the eager call bit for bit (no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    parts, scale, bias = _gn_inputs(g, 3, 24576, (640, 320))
+    eager = tln.fused_group_norm(parts, scale, bias, 32, 1e-5, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tln.fused_group_norm(parts, scale, bias, 32, 1e-5, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = tln.fused_group_norm(parts, scale, bias, 32, 1e-5, True)
+    for _ in range(2):
+        for o in static:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(static, eager))
+
+
+@pytest.mark.parametrize("case", ["across_frames", "frames_inner", "per_frame", "split_pair"])
+def test_group_norms_of_the_models_take_kernel_e(cuda, case):
+    """``ops.norms`` on the card: the UNet's across-frames norm (also on a
+    motion module's output, frames innermost), a per-frame norm and a
+    split pair each launch kernel E once, keep the input's layout, and
+    agree with the ATen path (one bf16 rounding and the SiLU's apart)."""
+    from insv2v_torch.ops import norms
+
+    g = torch.Generator(device=cuda).manual_seed(14)
+    x = (_randn(g, 3, 16, 8, 12, 320).float() * 2 + 0.5).bfloat16()
+    if case == "frames_inner":
+        x = x.permute(0, 2, 3, 1, 4).contiguous().permute(0, 3, 1, 2, 4)
+    scale, bias = (1.0 + 0.1 * _randn(g, 320)), 0.1 * _randn(g, 320)
+    before = tln.fused_group_norm.launches
+    with torch.no_grad():
+        if case == "split_pair":
+            skip = (_randn(g, 3, 16, 8, 12, 640).float() - 1).bfloat16()
+            s2, b2 = (1.0 + 0.1 * _randn(g, 960)), 0.1 * _randn(g, 960)
+            got = torch.cat(norms.group_norm_split_pair(x, skip, s2, b2, 32, silu=True), -1)
+            want = torch.nn.functional.silu(
+                norms._group_norm_aten(torch.cat([x, skip], -1), s2, b2, 32, 1e-6, (1, 2, 3), None))
+        else:
+            axes = (2, 3) if case == "per_frame" else None
+            got = norms.group_norm(x, scale, bias, 32, reduce_axes=axes, silu=True)
+            want = torch.nn.functional.silu(
+                norms._group_norm_aten(x, scale, bias, 32, 1e-6, axes or (1, 2, 3), None))
+            assert got.stride() == x.stride()
+    torch.cuda.synchronize()
+    assert tln.fused_group_norm.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+def test_group_norm_kernel_refuses_what_it_does_not_take(cuda):
+    """float32, a non-contiguous part, a group count that does not divide
+    the channels, a part of 12 channels, a recorded gradient: each raises,
+    and nothing falls back to the twin."""
+    z = lambda *s, dt=torch.bfloat16: torch.zeros(*s, device=cuda, dtype=dt)
+    one, nil = torch.ones(320, device=cuda), torch.zeros(320, device=cuda)
+    before = tln.fused_group_norm.launches
+    with pytest.raises(TypeError):
+        tln.fused_group_norm((z(2, 64, 320, dt=torch.float32),), one, nil, 32)
+    with pytest.raises(TypeError):
+        tln.fused_group_norm((z(2, 320, 64).transpose(1, 2),), one, nil, 32)
+    with pytest.raises(ValueError):
+        tln.fused_group_norm((z(2, 64, 320),), one, nil, 30)
+    with pytest.raises(ValueError):
+        tln.fused_group_norm((z(2, 64, 308), z(2, 64, 12)), one, nil, 32)
+    with pytest.raises(ValueError):
+        tln.fused_group_norm((z(2, 64, 320).requires_grad_(),), one, nil, 32)
+    assert tln.fused_group_norm.launches == before
 
 
 def _grad_case(name, g):

@@ -91,7 +91,8 @@ def test_spans_nest_with_parents_and_units_from_two_threads():
     snap = tracing.snapshot()
     assert snap["counts"] == {"outer": 2, "inner": 6, "after": 2}
     assert set(snap["launches"]) == {"flash_attention", "flash_attention_headfold",
-                                     "fused_geglu_ff", "temporal_attention", "fused_layer_norm"}
+                                     "fused_geglu_ff", "temporal_attention", "fused_layer_norm",
+                                     "fused_group_norm"}
 
 
 def test_a_span_closed_by_an_exception_is_marked_and_unwinds():
