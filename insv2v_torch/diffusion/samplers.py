@@ -175,7 +175,8 @@ def sample_video_window(unet: UnetApply, tables: SamplerTables, latent, img_cond
                     prop = ref_sum / n_ref
                 else:
                     full = delta_ref if group is None else group.all_gather_dim(delta_ref, 1)
-                    prop = _flow_propagate(full, flows, flow_masks)
+                    with span("sampler.flow_propagate"):
+                        prop = _flow_propagate(full, flows, flow_masks)
                 eps = eps + ref_mask * delta_ref + (1.0 - ref_mask) * prop
             nshape = ((1,) if share_batch_noise else lat.shape[:1]) + (
                 f * (1 if group is None else group.size),) + tuple(lat.shape[2:])

@@ -18,6 +18,12 @@ is one batched product, the pyramid lookup a gather.
   * ``RAFT``: images (B, H, W, 3) in [-1, 1], H and W multiples of 8 ->
     forward flow (B, H, W, 2) = (u, v), 12 GRU iterations in a Python loop
     with only the last iteration's upsampling mask computed.
+
+Tracing (``utils/tracing.py``): a forward opens ``raft.encode`` (fnet and
+cnet), ``raft.corr`` (the pyramid), ``raft.lookup`` and ``raft.update``
+(each iteration's lookup, and its motion encoder, GRU and flow head) and
+``raft.upsample``; ``RAFT.pairs`` counts the (image1, image2) pairs run,
+as the kernel wrappers count their ``.launches``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from insv2v_torch.utils.tracing import span
 
 __all__ = ["RaftConfig", "RAFT", "correlation_pyramid", "corr_lookup", "convex_upsample"]
 
@@ -239,6 +247,8 @@ class RAFT(nn.Module):
     """image1, image2 (B, H, W, 3) in [-1, 1], H and W multiples of 8 ->
     forward flow (B, H, W, 2) from image1 to image2, float32."""
 
+    pairs = 0  # (image1, image2) pairs run by any RAFT of the process
+
     def __init__(self, cfg: RaftConfig = RaftConfig()):
         super().__init__()
         self.cfg = cfg
@@ -253,19 +263,25 @@ class RAFT(nn.Module):
         nchw = lambda t: t.permute(0, 3, 1, 2)
         nhwc = lambda t: t.permute(0, 2, 3, 1)
         b, hh, ww, _ = image1.shape
+        RAFT.pairs += b
         h, w = hh // 8, ww // 8
-        f1, f2 = self.fnet(nchw(torch.cat([image1, image2], dim=0))).chunk(2, dim=0)
-        pyramid = correlation_pyramid(nhwc(f1), nhwc(f2), cfg.corr_levels)
-        cmap = self.cnet(nchw(image1))
-        hidden = torch.tanh(cmap[:, : cfg.hidden_dim])
-        context = F.relu(cmap[:, cfg.hidden_dim:])
+        with span("raft.encode"):
+            f1, f2 = self.fnet(nchw(torch.cat([image1, image2], dim=0))).chunk(2, dim=0)
+            cmap = self.cnet(nchw(image1))
+            hidden = torch.tanh(cmap[:, : cfg.hidden_dim])
+            context = F.relu(cmap[:, cfg.hidden_dim:])
+        with span("raft.corr"):
+            pyramid = correlation_pyramid(nhwc(f1), nhwc(f2), cfg.corr_levels)
         gy, gx = torch.meshgrid(torch.arange(h, device=image1.device, dtype=torch.float32),
                                 torch.arange(w, device=image1.device, dtype=torch.float32),
                                 indexing="ij")
         coords0 = torch.stack([gx, gy], dim=-1)[None].expand(b, h, w, 2)
         flow = image1.new_zeros((b, h, w, 2), dtype=torch.float32)
         for _ in range(iters):
-            corr = corr_lookup(pyramid, coords0 + flow, cfg.corr_radius)
-            hidden, delta = self.update_block(hidden, context, nchw(corr), nchw(flow))
-            flow = flow + nhwc(delta).float()
-        return convex_upsample(flow, nhwc(self.update_block.upsample_mask(hidden)))
+            with span("raft.lookup"):
+                corr = corr_lookup(pyramid, coords0 + flow, cfg.corr_radius)
+            with span("raft.update"):
+                hidden, delta = self.update_block(hidden, context, nchw(corr), nchw(flow))
+                flow = flow + nhwc(delta).float()
+        with span("raft.upsample"):
+            return convex_upsample(flow, nhwc(self.update_block.upsample_mask(hidden)))

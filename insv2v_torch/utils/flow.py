@@ -12,7 +12,8 @@ convention of ``ops.resize.warp_image``):
   * ``RaftFlow``: the port's RAFT (``models/raft.py``) on the GPU, with
     pretrained princeton-vl weights, or seeded random ones for structure
     tests only (``allow_random=True``). Its ``batch`` method runs many
-    (query, ref) pairs in one call: RAFT treats batch elements apart.
+    (query, ref) pairs in one call: RAFT treats batch elements apart. Each
+    RAFT call of ``batch`` runs in a ``flow.raft`` span.
 
 ``get_flow_estimator("auto")`` keeps the JAX rule: RAFT when weights are
 given (``weights_path`` or ``$INSV2V_RAFT_WEIGHTS``), else Farneback with a
@@ -33,6 +34,7 @@ from insv2v_torch._device import resolve_device
 from insv2v_torch.models.raft import RAFT, RaftConfig
 from insv2v_torch.ops.resize import resize_flow
 from insv2v_torch.utils.checkpoint import load_raft_state_dict
+from insv2v_torch.utils.tracing import span
 
 __all__ = ["FarnebackFlow", "ZeroFlow", "RaftFlow", "get_flow_estimator", "window_flows"]
 
@@ -101,9 +103,12 @@ class RaftFlow:
         hp, wp = -(-h // 8) * 8, -(-w // 8) * 8
         dev = lambda a: F.pad(torch.as_tensor(np.asarray(a, np.float32)).to(self.device),
                               (0, 0, 0, wp - w, 0, hp - h))
-        outs = [self.model(dev(queries[i: i + _RAFT_PAIRS_PER_CALL]),
-                           dev(refs[i: i + _RAFT_PAIRS_PER_CALL]))
-                for i in range(0, n, _RAFT_PAIRS_PER_CALL)]
+        outs = []
+        for i in range(0, n, _RAFT_PAIRS_PER_CALL):
+            chunk = slice(i, i + _RAFT_PAIRS_PER_CALL)
+            q, r = dev(queries[chunk]), dev(refs[chunk])
+            with span("flow.raft"):
+                outs.append(self.model(q, r))
         return torch.cat(outs, dim=0)[:, :h, :w]
 
     def __call__(self, query: np.ndarray, ref: np.ndarray) -> np.ndarray:

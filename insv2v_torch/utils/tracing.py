@@ -30,8 +30,9 @@ events are resolved when the clock closes, after its last mark. A clock
 nested in another on the same thread shares its unit and its events.
 
 ``snapshot()`` is what a reader sees: each name's records, oldest first,
-each name's count of spans, and the launch counters of the six kernel
-wrappers (their ``.launches``).
+each name's count of spans, the launch counters of the six kernel
+wrappers (their ``.launches``) and the program's work counters
+(``raft.pairs``: the (query, ref) pairs RAFT has run, ``RAFT.pairs``).
 
 No ``record_function`` and no NVTX range: torch's profiler keeps such a
 range as a device event on its timeline, where it would count as
@@ -303,14 +304,21 @@ def _launches() -> Dict[str, int]:
     return {f.__name__: f.launches for f in kernel_wrappers()}
 
 
+def _counters() -> Dict[str, int]:
+    """The program's work counters."""
+    from insv2v_torch.models.raft import RAFT
+
+    return {"raft.pairs": RAFT.pairs}
+
+
 def snapshot() -> dict:
     """{"spans": {name: records oldest first}, "counts": {name: spans
-    recorded}, "launches": {wrapper: launches}}."""
+    recorded}, "launches": {wrapper: launches}, "counters": {name: count}}."""
     with _rings_lock:
         rings = dict(_rings)
     return {"spans": {n: r.records() for n, r in rings.items()},
             "counts": {n: r.count for n, r in rings.items()},
-            "launches": _launches()}
+            "launches": _launches(), "counters": _counters()}
 
 
 def clear() -> None:
